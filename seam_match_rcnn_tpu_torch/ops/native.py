@@ -1,0 +1,129 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+All sources compile with one ``nvcc`` call into one shared library with a
+plain C interface, loaded with ``ctypes``; no PyTorch headers are involved,
+so a build takes seconds.  The library is named by a hash of the sources
+and the flags, under ``build/seam_torch_kernels/`` at the root of the
+checkout, and is rebuilt only when that hash changes.
+
+Every C entry point returns ``cudaGetLastError()`` right after its launch;
+``check`` turns a non-zero status into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "seam_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no automatic multiply-add contraction: the RoIAlign geometry must round
+    # like the plain PyTorch version's separate ops; kernels that want an FMA
+    # call fmaf() explicitly
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # x, w, bias, out, B, H, W, stream
+    "seam_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # 4 level pointers, 4 heights, 4 widths, 4 scales, rois, out,
+    # N, R, C, output_size, sampling_ratio, is_bf16, stream
+    "seam_roi_align_forward": [_P] * 4 + [_I] * 8 + [_F] * 4
+    + [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # seqs, mask, 11 weight pointers, out, S, T, stream
+    "seam_nlb_aggregate": [_P] * 14 + [_I, _I, _P],
+    # x, y, v, c0, out, Q, G, C, stream
+    "seam_pairwise_scores": [_P] * 5 + [_I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
+            "kernels of seam_match_rcnn_tpu_torch need the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libseam_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    nvcc's output, with the ``-Xptxas -v`` register and spill report, is
+    kept beside the library as ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    report = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+    out.with_suffix(".log").write_text(report)
+    os.replace(tmp, out)  # atomic: concurrent builders never load a torn file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.seam_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.seam_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        msg = library().seam_cuda_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    """Input check of a kernel wrapper: raise on what the kernel does not take."""
+    if not cond:
+        raise ValueError(f"{name}: {what}")
