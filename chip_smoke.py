@@ -3,22 +3,32 @@
     python3 chip_smoke.py
 
 Phases, one line each:
-  1. build   - compile seam_match_rcnn_tpu_torch/csrc/*.cu with nvcc into
-               build/seam_torch_kernels/ (skipped when the source hash is
-               unchanged);
+  1. build   - compile seam_match_rcnn_tpu_torch/csrc/*.cu with nvcc, one
+               process per source, into build/seam_torch_kernels/ (skipped
+               when the source hash is unchanged);
   2. kernels - each hand-written kernel against its plain PyTorch version on
-               the card at the serving shapes, with the max error against a
-               stated tolerance and the median time of each side (CUDA
-               events);
+               the card at the shapes the serving and training paths give
+               it, with the max error against a stated tolerance, the median
+               time of each side (CUDA events), the time of one library call
+               computing the same function where PyTorch has one, and the
+               least time the card could take (bytes over 3.35 TB/s or
+               operations over the peak rate of their type, the larger);
   3. slice   - the serving path at full width (ResNet-50-FPN, 4000
                proposals, 800x1344 canvases, chunk 11) with seeded random
                weights: a gallery of 16 synthetic shop images, then
-               retrieve(k=5) for 3 query videos of 10 frames.  Launch
-               counters are zeroed right before and read right after; every
-               kernel must have run.
-Then the card's name and power limit, a JSON line of per-kernel results, and
-last the JSON line {"ok": true, "device": {...}}.  Any failure exits non-zero
-without that line.  There is no CPU fallback.
+               retrieve(k=5) for 3 query videos of 10 frames;
+  4. train   - phase-1 Match R-CNN training at full width (bf16
+               ResNet-50-FPN with the fused stem frozen, 2000/8000 RPN
+               proposals, 512 sampled RoIs per image, batch 8) through
+               train_one_epoch_matchrcnn and Phase1Trainer on synthetic
+               street/shop batches: two warm-up steps, then 4 timed steps,
+               alternating mixed orientations (the two-bucket path) and a
+               single orientation (the fused path).
+For phases 3 and 4 the launch counters are zeroed right before and read
+right after; every kernel of the path must have run.  Then the card's name
+and power limit, a JSON line of per-kernel results, and last the JSON line
+{"ok": true, "device": {...}}.  Any failure exits non-zero without that
+line.  There is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -32,13 +42,20 @@ import time
 import numpy as np
 import torch
 
-from seam_match_rcnn_tpu.config import serving_model_config
+import torch.nn.functional as F
+
+from seam_match_rcnn_tpu_torch.config import RoIHeadsConfig, TrainConfig, serving_model_config
 from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix
+from seam_match_rcnn_tpu_torch.models.layers import FrozenBatchNorm2d
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem, native
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
-from seam_match_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
+from seam_match_rcnn_tpu_torch.ops.roi_align import (multilevel_roi_align,
+                                                      multilevel_roi_align_adjoint)
 from seam_match_rcnn_tpu_torch.serving import SeamRetrieval
+from seam_match_rcnn_tpu_torch.train.engine import train_one_epoch_matchrcnn
+from seam_match_rcnn_tpu_torch.train.optim import multistep_warmup_schedule, sgd
+from seam_match_rcnn_tpu_torch.train.steps import Phase1Trainer
 
 KERNELS = {
     "fused_stem": ("seam_match_rcnn_tpu_torch/csrc/stem.cu",
@@ -52,7 +69,25 @@ KERNELS = {
     "pairwise_scores": ("seam_match_rcnn_tpu_torch/csrc/pairwise.cu",
                         "seam_match_rcnn_tpu/ops/pallas_kernels.py:56",
                         cuda_kernels.pairwise_scores),
+    "roi_align_adjoint": ("seam_match_rcnn_tpu_torch/csrc/roi_adjoint.cu",
+                          "seam_match_rcnn_tpu/ops/pallas_roi_adjoint.py:254",
+                          cuda_roi_align.roi_align_adjoint),
 }
+SERVING_PATH = ("fused_stem", "roi_align", "nlb_aggregate", "pairwise_scores")
+TRAIN_PATH = ("fused_stem", "roi_align", "roi_align_adjoint")
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PYRAMID = ((200, 336), (100, 168), (50, 84), (25, 42))  # P2..P5 of an 800x1344 canvas
+
+
+def bound(nbytes: float, ops: float, op_type: str):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(msg: str) -> None:
@@ -105,6 +140,27 @@ def serving_rois(rng, b, n, h=800, w=1344):
     return torch.from_numpy(boxes.astype(np.float32))
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_adjoint(got, want, mass, dtype):
+    """K5 and its plain version add the same f32 summands in another order
+    (the kernel with atomics, whose order changes from run to run): |error|
+    <= 1e-5 x the sum of |summands| (the adjoint of |g|), plus one bf16 ulp
+    for the final rounding of a bf16 gradient."""
+    err, ok = 0.0, True
+    for a, w, m in zip(got, want, mass):
+        a = a.permute(0, 2, 3, 1).float()
+        d = (a - w).abs()
+        tol = 1e-5 * m + 1e-7
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(w)
+        ok &= bool((d <= tol).all())
+        err = max(err, float(d.max()))
+    return err, "1e-5 x sum|summands| (+1 bf16 ulp)", ok
+
+
 def phase_kernels(dev, results):
     rng = np.random.RandomState(0)
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
@@ -118,30 +174,72 @@ def phase_kernels(dev, results):
     err, tol, ok = check_bf16(got, want)
     ms = median_ms(lambda: cuda_stem.fused_stem(x, cw, sc, sh, torch.bfloat16), 10)
     pms = median_ms(lambda: cuda_stem.stem_plain(x, cw, sc, sh, torch.bfloat16), 10)
-    results["fused_stem"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, ok=ok, cases=[dict(
-        shape="[11,3,800,1344] bf16", max_abs_err=err, tol=tol, ms=ms, plain_ms=pms)])
+    wb, bias = cuda_stem.fold_stem_weights(cw, sc, sh)
+    bias = bias.to(torch.bfloat16)
+    lms = median_ms(lambda: F.max_pool2d(F.relu(F.conv2d(x, wb, bias, 2, 3)), 3, 2, 1), 10)
+    b_ms, b_by = bound(nbytes(x, wb, got) + 64 * 4,
+                       2 * 11 * 400 * 672 * 64 * 147, "bf16")
+    results["fused_stem"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, ok=ok, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lms, cases=[dict(
+                                     shape="[11,3,800,1344] bf16", max_abs_err=err, tol=tol,
+                                     ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b_ms)])
     del x, got, want
 
-    # K2: box branch 11 x 4000 rois at 7x7 and match branch 11 x 100 at 14x14,
-    # over a bf16 channels_last P2..P5 pyramid of an 800x1344 canvas
-    feats = [t(rng.randn(11, 256, h, w), torch.bfloat16).contiguous(memory_format=torch.channels_last)
-             for h, w in ((200, 336), (100, 168), (50, 84), (25, 42))]
+    # K2: serving box branch 11 x 4000 rois at 7x7 and match branch 11 x 100
+    # at 14x14; training box branch 8 x 512 at 7x7 and mask branch 8 x 128 at
+    # 14x14; over bf16 channels_last P2..P5 pyramids of 800x1344 canvases
     cases, all_ok, worst = [], True, 0.0
-    for n, o, reps in ((4000, 7, 10), (100, 14, 20)):
-        rois = serving_rois(rng, 11, n).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b, n, o, reps in ((11, 4000, 7, 10), (11, 100, 14, 20), (8, 512, 7, 10),
+                          (8, 128, 14, 20)):
+        feats = [torch.randn((b, 256, h, w), generator=gen, device=dev).to(torch.bfloat16)
+                 .contiguous(memory_format=torch.channels_last) for h, w in PYRAMID]
+        rois = serving_rois(rng, b, n).to(dev)
         got = cuda_roi_align.roi_align(feats, rois, o)
         want = multilevel_roi_align(feats, rois, o)
         err, tol, ok = check_bf16(got, want)
         ms = median_ms(lambda: cuda_roi_align.roi_align(feats, rois, o), reps)
         pms = median_ms(lambda: multilevel_roi_align(feats, rois, o), 3)
-        cases.append(dict(shape=f"11x{n} rois {o}x{o} bf16", max_abs_err=err, tol=tol,
-                          ms=ms, plain_ms=pms))
+        # 4 corners x ratio^2 samples, a multiply and an add each, per output
+        b_ms, b_by = bound(nbytes(*feats, rois, got), got.numel() * 4 * 4 * 2, "f32")
+        cases.append(dict(shape=f"{b}x{n} rois {o}x{o} bf16", max_abs_err=err, tol=tol,
+                          ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
+                          bound_by=b_by))
         all_ok &= ok
         worst = max(worst, err)
-        del got, want
+        del got, want, feats
     results["roi_align"] = dict(max_abs_err=worst, ms=cases[0]["ms"],
-                                plain_ms=cases[0]["plain_ms"], ok=all_ok, cases=cases)
-    del feats
+                                plain_ms=cases[0]["plain_ms"], ok=all_ok,
+                                bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
+                                library_ms=None, cases=cases)
+
+    # K5 at the training shapes: f32 cotangents of 8 x 512 rois at 7x7 and
+    # 8 x 128 at 14x14 -> the gradient of an 8-image bf16 pyramid
+    cases, all_ok, worst = [], True, 0.0
+    for b, n, o, reps in ((8, 512, 7, 10), (8, 128, 14, 10)):
+        rois = serving_rois(rng, b, n).to(dev)
+        g = torch.randn((b, n, o, o, 256), generator=gen, device=dev)
+        got = cuda_roi_align.roi_align_adjoint(g, rois, PYRAMID, torch.bfloat16)
+        want = multilevel_roi_align_adjoint(g, rois, PYRAMID)
+        mass = multilevel_roi_align_adjoint(g.abs(), rois, PYRAMID)
+        err, tol, ok = check_adjoint(got, want, mass, torch.bfloat16)
+        del want, mass
+        ms = median_ms(lambda: cuda_roi_align.roi_align_adjoint(g, rois, PYRAMID,
+                                                                torch.bfloat16), reps)
+        pms = median_ms(lambda: multilevel_roi_align_adjoint(g, rois, PYRAMID), 3)
+        # every sample adds to 4 corners: a multiply and an add each
+        ops = b * n * (o * 2) ** 2 * 256 * 4 * 2
+        b_ms, b_by = bound(nbytes(g, rois, *got), ops, "f32")
+        cases.append(dict(shape=f"{b}x{n} rois {o}x{o} -> bf16 pyramid", max_abs_err=err,
+                          tol=tol, ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
+                          bound_by=b_by))
+        all_ok &= ok
+        worst = max(worst, err)
+        del got, g
+    results["roi_align_adjoint"] = dict(
+        max_abs_err=worst, ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"], ok=all_ok,
+        bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"], library_ms=None,
+        cases=cases)
 
     # K3 at S in {1, 64}, T = 10, with a non-zero W_z
     d = lambda i, o: t(rng.randn(i, o) / np.sqrt(i))
@@ -158,13 +256,22 @@ def phase_kernels(dev, results):
         err, tol, ok = check_f32(got, want)
         ms = median_ms(lambda: cuda_kernels.nlb_aggregate(seqs, mask, p), 50)
         pms = median_ms(lambda: cuda_kernels.nlb_aggregate_plain(seqs, mask, p), 50)
-        cases.append(dict(shape=f"S={s} T=10", max_abs_err=err, tol=tol, ms=ms, plain_ms=pms))
+        tt = 10
+        ops = s * (3 * 2 * tt * 256 * 128 + 2 * tt * tt * 128 + 2 * tt * 128 * 256
+                   + 4 * tt * 256 + 2 * 2 * tt * 128)
+        b_ms, b_by = bound(nbytes(seqs, mask, got, *p.values()), ops, "f32")
+        cases.append(dict(shape=f"S={s} T=10", max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
+                          library_ms=None, bound_ms=b_ms, bound_by=b_by))
         all_ok &= ok
         worst = max(worst, err)
     results["nlb_aggregate"] = dict(max_abs_err=worst, ms=cases[0]["ms"],
-                                    plain_ms=cases[0]["plain_ms"], ok=all_ok, cases=cases)
+                                    plain_ms=cases[0]["plain_ms"], ok=all_ok,
+                                    bound_ms=cases[0]["bound_ms"],
+                                    bound_by=cases[0]["bound_by"], library_ms=None,
+                                    cases=cases)
 
-    # K4: one query against a gallery, and the N x N frame self-similarity
+    # K4: one query against a gallery, and the N x N frame self-similarity;
+    # the library yardstick is the cuBLAS GEMM of the matmul expansion
     cases, all_ok, worst = [], True, 0.0
     w, b = t(rng.randn(2, 256) * 0.05), t(rng.randn(2))
     for q, g in ((1, 1000), (1000, 1000)):
@@ -176,16 +283,25 @@ def phase_kernels(dev, results):
         err, tol, ok = check_f32(got, want)
         ms = median_ms(lambda: cuda_kernels.pairwise_scores(xq, yg, w, b), 50)
         pms = median_ms(lambda: pairwise_match_scores(xq, yg, w, b), 50)
-        cases.append(dict(shape=f"{q}x{g}", max_abs_err=err, tol=tol, ms=ms, plain_ms=pms))
+        yt = yg.T.contiguous()
+        lms = median_ms(lambda: torch.mm(xq, yt), 50)
+        b_ms, b_by = bound(nbytes(xq, yg, w, b, got), 2 * q * g * 256, "f32")
+        cases.append(dict(shape=f"{q}x{g}", max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
+                          library_ms=lms, bound_ms=b_ms, bound_by=b_by))
         all_ok &= ok
         worst = max(worst, err)
     results["pairwise_scores"] = dict(max_abs_err=worst, ms=cases[-1]["ms"],
-                                      plain_ms=cases[-1]["plain_ms"], ok=all_ok, cases=cases)
+                                      plain_ms=cases[-1]["plain_ms"], ok=all_ok,
+                                      bound_ms=cases[-1]["bound_ms"],
+                                      bound_by=cases[-1]["bound_by"],
+                                      library_ms=cases[-1]["library_ms"], cases=cases)
 
     for name, r in results.items():
         for c in r["cases"]:
+            lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
             log(f"kernels: {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3g} "
-                f"({c['tol']}) kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms")
+                f"({c['tol']}) kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+                f"library {lib}, bound {c['bound_ms']:.4f} ms")
         if not r["ok"]:
             raise SystemExit(f"kernels: {name} disagrees with its plain version")
 
@@ -254,7 +370,7 @@ def phase_slice(dev):
         if len(a.indices) != min(5, len(gallery.keys)) or not np.isfinite(a.scores).all() \
                 or np.any(np.diff(a.scores) > 0):
             raise SystemExit("slice: a retrieval answer is not a finite, sorted top-5")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in SERVING_PATH if launches[name] == 0]
     if missing:
         raise SystemExit(f"slice: the serving path never launched {missing}")
     # the kernels agree with their plain versions on this run's own data
@@ -286,6 +402,127 @@ def phase_slice(dev):
     return launches, latencies, gallery_s, peak_gb
 
 
+def garment_crop(rng, s=56):
+    """A filled ellipse mask crop [s, s] uint8, as a garment's mask in its box."""
+    yy, xx = np.mgrid[:s, :s] / (s - 1) * 2 - 1
+    ry, rx = rng.uniform(0.6, 1.0, 2)
+    return ((yy / ry) ** 2 + (xx / rx) ** 2 <= 1.0).astype(np.uint8)
+
+
+def train_batch(rng, sizes):
+    """One phase-1 batch: images [0, len/2) are street photos (source 0),
+    the rest shop photos (source 1); street image i and shop image i + len/2
+    show the same 1-3 garments (pair ids shared, styles >= 1).  Each garment
+    is a coloured rectangle with its box (in the image's pixels) and a 56x56
+    mask crop."""
+    half = len(sizes) // 2
+    garments = [[(rng.randint(1, 14), 1000 * k + j, 1 + j % 2) for j in range(1 + k % 3)]
+                for k in range(half)]
+    images, targets = [], []
+    for i, (h, w) in enumerate(sizes):
+        img = rng.uniform(0.0, 0.25, (h, w, 3)).astype(np.float32)
+        boxes = []
+        for _ in garments[i % half]:
+            bw, bh = w * rng.uniform(0.2, 0.6), h * rng.uniform(0.2, 0.6)
+            x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            img[int(y1):int(y1 + bh), int(x1):int(x1 + bw)] = rng.uniform(0.3, 1.0, 3)
+            boxes.append([x1, y1, x1 + bw, y1 + bh])
+        g = garments[i % half]
+        targets.append({"boxes": np.asarray(boxes, np.float32),
+                        "labels": np.asarray([x[0] for x in g]),
+                        "pair_ids": np.asarray([x[1] for x in g]),
+                        "styles": np.asarray([x[2] for x in g]),
+                        "sources": np.full(len(g), 0 if i < half else 1),
+                        "mask_crops": np.stack([garment_crop(rng) for _ in g])})
+        images.append(img)
+    return images, targets
+
+
+class TimedTrainer:
+    """Phase1Trainer with a synchronised host clock around each step."""
+
+    def __init__(self, trainer):
+        self.trainer, self.optimizer = trainer, trainer.optimizer
+        self.times, self.losses, self.buckets = [], [], []
+
+    def step(self, batches, generator=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.trainer.step(batches, generator)
+        torch.cuda.synchronize()
+        self.times.append(time.perf_counter() - t0)
+        self.losses.append({k: float(v) for k, v in out.items()})
+        self.buckets.append(len(batches))
+        return out
+
+
+def phase_train(dev):
+    tc = TrainConfig()
+    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend="pallas_resident"),
+                               freeze_backbone_stages=True)
+    model = init_model(cfg, video=False, seed=0, device=dev)
+    schedule = multistep_warmup_schedule(tc.lr, tc.milestones, tc.gamma, 1000,
+                                         tc.warmup_iters, tc.warmup_factor)
+    timed = TimedTrainer(Phase1Trainer(model, sgd(model, schedule, tc.momentum,
+                                                  tc.weight_decay, tc.clip_grad_norm)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.RandomState(2)
+    mixed = [(600, 800), (720, 1280), (480, 640), (800, 600), (768, 1024),  # 4 street
+             (1280, 720), (500, 900), (640, 480)]                           # 4 shop
+    single = [(600, 800), (720, 1280), (480, 640), (768, 1024), (540, 960), (500, 900),
+              (640, 960), (450, 800)]
+    # the first step of each path meets new shapes (cuDNN plans, allocator
+    # growth), so both paths warm up before the timed steps
+    data = [train_batch(rng, sizes) + ([i],) for i, sizes in
+            enumerate((mixed, single, mixed, single, mixed, single))]
+    n_warm = 2
+    assert tc.batch_size == 8 and all(len(d[0]) == tc.batch_size for d in data)
+
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    for name, mod in model.named_modules():
+        if isinstance(mod, FrozenBatchNorm2d):
+            frozen.update({f"{name}.{b}": v.clone() for b, v in mod.named_buffers()})
+    train_one_epoch_matchrcnn(model, timed, data[:n_warm], epoch=0, generator=gen,
+                              print_freq=100)
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    for _, _, fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_one_epoch_matchrcnn(model, timed, data[n_warm:], epoch=0, generator=gen,
+                              print_freq=100)
+    launches = {name: fn.launches for name, (_, _, fn) in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = [x * 1e3 for x in timed.times[n_warm:]]
+    buckets = timed.buckets[n_warm:]
+
+    log(f"train: full-width phase-1 steps (batch 8, buckets {buckets}) in ms: "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + f"; median {statistics.median(step_ms):.1f}"
+        " ms; warm-up steps " + ", ".join(f"{x * 1e3:.1f}" for x in timed.times[:n_warm])
+        + f" ms; peak memory {peak_gb:.2f} GiB; launches {launches}")
+    for i, lf in enumerate(timed.losses):
+        log(f"train: step {i}: " + ", ".join(f"{k}={v:.4f}" for k, v in lf.items()))
+    if not all(np.isfinite(v) for lf in timed.losses for v in lf.values()):
+        raise SystemExit("train: a loss is not finite")
+    if 1 not in buckets or 2 not in buckets:
+        raise SystemExit(f"train: the fused and the two-bucket paths did not both run "
+                         f"({timed.buckets})")
+    params = dict(model.named_parameters())
+    still = [n for n, v in trainable.items() if torch.equal(v, params[n])]
+    if still:
+        raise SystemExit(f"train: trainable parameters did not move: {still[:5]}")
+    state = dict(model.named_parameters())
+    state.update(dict(model.named_buffers()))
+    changed = [n for n, v in frozen.items() if not torch.equal(v, state[n])]
+    if changed:
+        raise SystemExit(f"train: frozen tensors changed: {changed[:5]}")
+    missing = [name for name in TRAIN_PATH if launches[name] == 0]
+    if missing:
+        raise SystemExit(f"train: the training path never launched {missing}")
+    log(f"train: every loss finite; all {len(trainable)} trainable tensors moved; all "
+        f"{len(frozen)} frozen tensors (stem, layer1, FrozenBN) bit-identical")
+    return launches, step_ms, buckets, peak_gb, timed.losses[n_warm:]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -302,20 +539,24 @@ def main() -> int:
 
     results = {}
     phase_kernels(dev, results)
-    launches, latencies, gallery_s, peak_gb = phase_slice(dev)
+    serve_launches, latencies, gallery_s, serve_peak_gb = phase_slice(dev)
+    torch.cuda.empty_cache()
+    train_launches, step_ms, step_buckets, train_peak_gb, train_losses = phase_train(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
-         "cases": results[name]["cases"]}
+         "launches": serve_launches[name] + train_launches[name],
+         "launches_by_path": {"serving": serve_launches[name], "train": train_launches[name]},
+         **{k: results[name][k] for k in keys}}
         for name, (src, rep, _) in KERNELS.items()],
         "retrieve_ms": [x * 1e3 for x in latencies], "gallery_ms": gallery_s * 1e3,
-        "peak_gib": peak_gb}))
+        "serving_peak_gib": serve_peak_gb, "train_step_ms": step_ms, "train_step_buckets": step_buckets,
+        "train_peak_gib": train_peak_gb, "train_losses": train_losses}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

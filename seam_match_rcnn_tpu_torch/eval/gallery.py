@@ -16,10 +16,14 @@ import torch
 from ..ops.cuda_kernels import pairwise_scores
 
 
-def score_matrix(street, shop, w, b, device="cpu", chunk: int = 4096) -> np.ndarray:
+def score_matrix(street, shop, w, b, device=None, chunk: int = 4096) -> np.ndarray:
     """softmax((street - shop)^2 W^T + b)[..., 1] for all pairs -> [Q, G]
     f32 numpy.  ``street`` [Q, C], ``shop`` [G, C], ``w`` [2, C], ``b`` [2]
-    (numpy arrays or tensors) are scored on ``device``."""
+    (numpy arrays or tensors) are scored on ``device``: by default the
+    device of the first tensor among them, else the CUDA device."""
+    if device is None:
+        device = next((a.device for a in (street, shop, w, b) if isinstance(a, torch.Tensor)),
+                      torch.device("cuda"))
     street, shop, w, b = (torch.as_tensor(a, dtype=torch.float32, device=device)
                           for a in (street, shop, w, b))
     q, g = street.shape[0], shop.shape[0]

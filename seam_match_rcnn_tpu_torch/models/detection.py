@@ -13,8 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from seam_match_rcnn_tpu.config import RoIHeadsConfig
-
+from ..config import RoIHeadsConfig
 from ..ops import boxes as box_ops
 from ..ops.nms import batched_nms_padded
 from .rpn import topk_stable

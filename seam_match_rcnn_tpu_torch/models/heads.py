@@ -1,4 +1,4 @@
-"""Detection heads: RPN head, box head and predictor, mask head parameters.
+"""Detection heads: RPN head, box head and predictor, mask head and predictor.
 
 Port of ``seam_match_rcnn_tpu/models/heads.py`` with torchvision's module
 names.  Everything is NCHW; RoI tensors are [N, C, S, S].
@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Conv2d, Linear
+from .layers import Conv2d, ConvTranspose2d, Linear
 
 
 class RPNHead(nn.Module):
@@ -71,9 +71,7 @@ class FastRCNNPredictor(nn.Module):
 
 
 class MaskHead(nn.Module):
-    """Parameters of torchvision's MaskRCNNHeads (4 x conv3x3 256), held so
-    that checkpoints carry every weight; the mask forward lands with the
-    mask branch (ROADMAP M8)."""
+    """torchvision MaskRCNNHeads: 4 x (conv3x3 256 + relu) on [N, 256, 14, 14]."""
 
     def __init__(self, dt: torch.dtype, channels: int = 256):
         super().__init__()
@@ -81,12 +79,20 @@ class MaskHead(nn.Module):
             setattr(self, f"mask_fcn{i}", Conv2d(channels, channels, 3, padding=1,
                                                  compute_dtype=dt))
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(1, 5):
+            x = F.relu(getattr(self, f"mask_fcn{i}")(x))
+        return x
+
 
 class MaskPredictor(nn.Module):
-    """Parameters of torchvision's MaskRCNNPredictor (conv-transpose 2x2/2 +
-    1x1 per-class logits); forward with the mask branch (ROADMAP M8)."""
+    """torchvision MaskRCNNPredictor: conv-transpose 2x2/2 + relu, then 1x1
+    per-class logits -> [N, num_classes, 28, 28] in the compute dtype."""
 
-    def __init__(self, num_classes: int, channels: int = 256):
+    def __init__(self, num_classes: int, dt: torch.dtype, channels: int = 256):
         super().__init__()
-        self.conv5_mask = nn.ConvTranspose2d(channels, channels, 2, stride=2)
-        self.mask_fcn_logits = nn.Conv2d(channels, num_classes, 1)
+        self.conv5_mask = ConvTranspose2d(channels, channels, 2, stride=2, compute_dtype=dt)
+        self.mask_fcn_logits = Conv2d(channels, num_classes, 1, compute_dtype=dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))

@@ -26,6 +26,18 @@ class Conv2d(nn.Conv2d):
                         self.dilation, self.groups)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
 class Linear(nn.Linear):
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kw):
         super().__init__(*args, **kw)

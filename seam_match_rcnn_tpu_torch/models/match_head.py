@@ -23,15 +23,38 @@ from .layers import Conv2d
 
 
 class MaskedBatchNorm1d(nn.BatchNorm1d):
-    """BatchNorm1d at inference: running statistics, in the JAX package's
-    operation order.  The masked training statistics land with training
-    (ROADMAP M10-M11); a module in training mode raises."""
+    """BatchNorm over [N, C] rows with an optional row-validity mask, in the
+    JAX package's operation order (``nn.BatchNorm1d`` keeps only the
+    parameter names).
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("MaskedBatchNorm1d training statistics: ROADMAP M10")
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return ((x - self.running_mean) * inv) * self.weight + self.bias
+    ``train=False``: running statistics.  ``train=True``: the masked mean
+    and biased variance of the valid rows normalize, and the running
+    statistics move with momentum 0.1 towards that mean and the unbiased
+    variance; when no row is valid the update has weight zero, so an empty
+    slot set leaves them as they were.  The caller says which, as the JAX
+    ``train=`` flag: the module's own ``training`` mode is not read."""
+
+    def forward(self, x: torch.Tensor, valid=None, train: bool = False) -> torch.Tensor:
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            if valid is None:
+                n = torch.tensor(float(x.shape[0]), device=x.device)
+                mean = x.mean(dim=0)
+                var = ((x - mean) ** 2).mean(dim=0)
+                m = torch.tensor(self.momentum, device=x.device)
+            else:
+                w = valid.to(torch.float32)[:, None]
+                n = w.sum().clamp(min=1.0)
+                mean = (x * w).sum(dim=0) / n
+                var = (((x - mean) ** 2) * w).sum(dim=0) / n
+                m = self.momentum * (valid.sum() > 0).to(torch.float32)
+            with torch.no_grad():
+                unbiased = var * n / (n - 1.0).clamp(min=1.0)
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        inv = torch.rsqrt(var + self.eps)
+        return ((x - mean) * inv) * self.weight + self.bias
 
 
 class MatchTrunk(nn.Module):
@@ -47,12 +70,13 @@ class MatchTrunk(nn.Module):
         self.conv_seq = nn.Sequential(*layers)
         self.linear = nn.Sequential(nn.Linear(1024, 256), MaskedBatchNorm1d(256))
 
-    def descriptors(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, 256, 14, 14] -> [N, 256] f32."""
+    def descriptors(self, x: torch.Tensor, valid=None, train: bool = False) -> torch.Tensor:
+        """x [N, 256, 14, 14] -> [N, 256] f32.  ``train``: BatchNorm over this
+        batch's ``valid`` rows (all rows when None), as the JAX ``train=True``."""
         x = self.conv_seq(x)
         # the 6x6 mean and the projection stay f32 whatever the trunk dtype
         x = F.relu(x.to(torch.float32).mean(dim=(2, 3)))
-        return self.linear(x)
+        return self.linear[1](self.linear[0](x), valid=valid, train=train)
 
 
 class MatchPredictor(MatchTrunk):

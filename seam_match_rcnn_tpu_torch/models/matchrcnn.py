@@ -1,41 +1,81 @@
-"""SEAM (video) Match R-CNN inference: the full detector plus descriptors.
+"""Match R-CNN and SEAM (video) Match R-CNN: serving and phase-1 training.
 
-Port of ``seam_match_rcnn_tpu/models/matchrcnn.py`` for the serving path:
-backbone -> RPN -> proposal NMS -> box branch -> class NMS -> 14x14 RoIAlign
-on the detections -> match descriptors, plus the temporal aggregator's
-descriptors and sequence aggregation.  Module names follow the reference's
-torchvision state dict (``backbone.body.*``, ``rpn.head.*``,
-``roi_heads.box_head.*``, ``roi_heads.match_predictor.*``, ...).
+Port of ``seam_match_rcnn_tpu/models/matchrcnn.py``.  Serving: backbone ->
+RPN -> proposal NMS -> box branch -> class NMS -> 14x14 RoIAlign on the
+detections -> match descriptors, plus the temporal aggregator's descriptors
+and sequence aggregation.  Phase-1 training (``_train_core`` and the
+methods built on it): RPN loss over all anchors, RoI sampling with the GTs
+appended, box branch (K2 at 7x7), mask branch and match-slot RoIs (K2 at
+14x14), the supervised match loss; the RoIAlign backward is K5.  Module
+names follow the reference's torchvision state dict (``backbone.body.*``,
+``rpn.head.*``, ``roi_heads.box_head.*``, ``roi_heads.match_predictor.*``,
+...).
 
 The TPU plumbing of the JAX model is gone: the tile-sorted box path and its
 unpermute (kernel K2 returns rois in natural order), the int8 pyramid and
-the exact fixup.  Public outputs keep the JAX shapes and padding.
+the exact fixup.  Public outputs keep the JAX shapes and padding.  Random
+draws of the samplers come from a ``torch.Generator`` or are handed in
+(``draws``), since ``jax.random`` and torch give different numbers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-from seam_match_rcnn_tpu.config import ModelConfig
-from seam_match_rcnn_tpu.models.anchors import grid_anchors
-
+from ..config import ModelConfig
+from ..losses import detection as det_losses
+from ..losses.match import match_loss_supervised
+from ..ops.boxes import box_iou, encode_boxes
 from ..ops.cuda_roi_align import roi_align
 from ..ops.roi_align import multilevel_roi_align
+from ..ops.targets import assign_and_sample
+from .anchors import grid_anchors
 from .detection import postprocess_detections
 from .heads import FastRCNNPredictor, MaskHead, MaskPredictor, RPNHead, TwoMLPHead
 from .match_head import MatchPredictor, TemporalAggregator
 from .resnet import BackboneWithFPN
-from .rpn import flatten_rpn_outputs, select_proposals
+from .rpn import flatten_rpn_outputs, select_proposals, topk_stable
 from .transform import normalize
+
+
+def _select_match_slots(pos_props: torch.Tensor, pos_valid: torch.Tensor,
+                        gt_boxes: torch.Tensor, gt_valid: torch.Tensor, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``filter_proposals``, batched: keep, per GT, the top
+    (k // n_gt) positive proposals by IoU against it (a proposal may serve
+    several GTs), compacted into k slots in GT-major order.  Ranking is by
+    correct IoU (the JAX package's documented divergence from the
+    reference's xywh IoU).
+
+    pos_props [B, P, 4], pos_valid [B, P], gt_boxes [B, G, 4], gt_valid [B,
+    G] -> (slot_idx [B, k] into pos_props, slot_valid [B, k])."""
+    b, p = pos_props.shape[:2]
+    per_gt = k // gt_valid.sum(dim=-1).clamp(min=1)  # 0 when n_gt > k, as the reference
+    iou = box_iou(pos_props, gt_boxes)
+    iou = torch.where(pos_valid[:, :, None] & gt_valid[:, None, :], iou,
+                      torch.full_like(iou, -1.0))
+    ranks = torch.argsort(torch.argsort(-iou, dim=1, stable=True), dim=1, stable=True)
+    sel = (ranks < per_gt[:, None, None]) & (iou > -1.0)
+    flat = sel.transpose(1, 2).reshape(b, -1)  # GT-major, as the per-GT loop
+    # the JAX package's f32 keys: 1e9 - i ties in runs of 64, which the
+    # stable top-k breaks by index, as lax.top_k
+    ar = torch.arange(flat.shape[1], dtype=torch.float32, device=flat.device)
+    _, top = topk_stable(torch.where(flat, 1e9 - ar, -ar), k)
+    slot_valid = torch.take_along_dim(flat, top, dim=1)
+    return torch.where(slot_valid, top % p, torch.zeros_like(top)), slot_valid
 
 
 class MatchRCNN(nn.Module):
     """video=False: Match R-CNN (fallback detection score 1.0).  video=True:
     SEAM VideoMatchRCNN with the temporal aggregator (fallback 0.1).
-    Inference only; the module is put in eval mode."""
+
+    No layer reads the module's train/eval mode: BatchNorm is frozen in the
+    backbone, and the match trunk's BatchNorm uses batch statistics only
+    where the caller asks (``match_loss_from_rois``), as the JAX
+    ``train=`` flag; ``inference`` always uses the running statistics."""
 
     def __init__(self, cfg: ModelConfig, video: bool = False):
         super().__init__()
@@ -53,13 +93,13 @@ class MatchRCNN(nn.Module):
         self.video = video
         dt = getattr(torch, cfg.compute_dtype)
         tdt = getattr(torch, cfg.match.trunk_dtype)
-        self.backbone = BackboneWithFPN(dt, cfg.stem_backend)
+        self.backbone = BackboneWithFPN(dt, cfg.stem_backend, cfg.freeze_backbone_stages)
         self.rpn = nn.ModuleDict({"head": RPNHead(cfg.anchors.num_anchors_per_location, dt)})
         heads = {
             "box_head": TwoMLPHead(256, rh.box_roi_output, dt),
             "box_predictor": FastRCNNPredictor(1024, cfg.num_classes, dt),
             "mask_head": MaskHead(dt),
-            "mask_predictor": MaskPredictor(cfg.num_classes),
+            "mask_predictor": MaskPredictor(cfg.num_classes, dt),
             "match_predictor": MatchPredictor(tdt),
         }
         if video:
@@ -94,22 +134,36 @@ class MatchRCNN(nn.Module):
                                 [x.to(torch.float32) for x in deltas],
                                 self._grid_anchors(feats), image_sizes, self.cfg.rpn)
 
-    def _roi_align(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+    def roi_levels(self, feats: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+        """P2..P5 as the RoIAlign backend takes them: channels_last copies for
+        kernel K2 (made once per forward, shared by every RoIAlign call)."""
+        if self.cfg.roi_heads.roi_align_backend == "pallas_resident":
+            return [f.contiguous(memory_format=torch.channels_last) for f in feats[:4]]
+        return feats[:4]
+
+    def _roi_align(self, levels: Sequence[torch.Tensor], rois: torch.Tensor,
                    output_size: int) -> torch.Tensor:
-        """[B, R, 4] rois -> [B*R, C, out, out] in the features' dtype."""
+        """levels from ``roi_levels`` (P2..P5; a P6 after them is ignored);
+        [B, R, 4] rois -> [B*R, C, out, out] in the features' dtype.
+        Differentiable in the features (K5 backward)."""
         rh = self.cfg.roi_heads
         if rh.roi_align_backend == "pallas_resident":
-            levels = [f.contiguous(memory_format=torch.channels_last) for f in feats[:4]]
-            return roi_align(levels, rois.contiguous(), output_size, rh.sampling_ratio)
-        return multilevel_roi_align(feats[:4], rois, output_size, rh.sampling_ratio)
+            return roi_align(levels[:4], rois.contiguous(), output_size, rh.sampling_ratio)
+        return multilevel_roi_align(levels[:4], rois, output_size, rh.sampling_ratio)
 
-    def box_branch(self, feats, rois: torch.Tensor):
+    def box_branch(self, levels, rois: torch.Tensor):
         """-> class_logits [B, R, C] f32, deltas [B, R, 4C] f32."""
         b, r = rois.shape[:2]
-        x = self.roi_heads["box_head"](self._roi_align(feats, rois, self.cfg.roi_heads.box_roi_output))
+        x = self.roi_heads["box_head"](
+            self._roi_align(levels, rois, self.cfg.roi_heads.box_roi_output))
         logits, deltas = self.roi_heads["box_predictor"](x)
         return (logits.reshape(b, r, -1).to(torch.float32),
                 deltas.reshape(b, r, -1).to(torch.float32))
+
+    def mask_branch(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        """[N, 256, 14, 14] -> mask logits [N, num_classes, 28, 28] f32."""
+        x = self.roi_heads["mask_head"](roi_feats)
+        return self.roi_heads["mask_predictor"](x).to(torch.float32)
 
     def match_descriptors(self, roi_feats: torch.Tensor) -> torch.Tensor:
         return self.roi_heads["match_predictor"].descriptors(roi_feats.to(torch.float32))
@@ -141,8 +195,9 @@ class MatchRCNN(nn.Module):
             raise NotImplementedError("mask branch: ROADMAP M8")
         image_sizes = image_sizes.to(images.device)
         feats = self.features(images)
+        levels = self.roi_levels(feats)
         props, _, pvalid = self.proposals(feats, image_sizes)
-        logits, deltas = self.box_branch(feats, props)
+        logits, deltas = self.box_branch(levels, props)
         det = postprocess_detections(logits, deltas, props, pvalid, image_sizes,
                                      self.cfg.roi_heads,
                                      fallback_score=0.1 if self.video else 1.0)
@@ -150,12 +205,151 @@ class MatchRCNN(nn.Module):
                "valid": det.valid}
         b, d = det.boxes.shape[:2]
         o = self.cfg.roi_heads.mask_roi_output
-        roi14 = self._roi_align(feats, det.boxes, o).to(torch.float32)
+        roi14 = self._roi_align(levels, det.boxes, o).to(torch.float32)
         if with_roi_features:
             out["roi_features"] = roi14.reshape(b, d, -1, o, o)
         if with_match:
             out["match_features"] = self.match_descriptors(roi14).reshape(b, d, -1)
         return out
+
+    # ---- phase-1 training ------------------------------------------------
+
+    def _train_core(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                    gt: Dict[str, torch.Tensor], draws: Optional[Dict[str, torch.Tensor]] = None,
+                    generator: Optional[torch.Generator] = None, num_match_slots: int = 8,
+                    num_mask_slots: int = 128):
+        """The shared phase-1 forward: detector losses as unnormalized parts
+        (their normalizers span the whole batch, see
+        ``det_losses_from_parts``), the match-slot RoIs and their metadata.
+
+        images [B, 3, H, W] in [0, 1]; image_sizes [B, 2]; gt: boxes [B, G,
+        4], labels, valid, pair_ids, styles [B, G], source [B] (0 street, 1
+        shop), mask_crops [B, G, S, S].  ``draws``: "rpn" [B, N_anchors] and
+        "roi" [B, post_nms_top_n_train + G] uniforms for the two samplers;
+        drawn from ``generator`` when None.  Returns (parts, match RoIs [B*k,
+        256, 14, 14] f32, meta: pair_ids, styles, src, valid [B*k])."""
+        rh = self.cfg.roi_heads
+        rpn_cfg = self.cfg.rpn
+        b = images.shape[0]
+        dev = images.device
+        image_sizes = image_sizes.to(dev)
+        feats = self.features(images)
+        levels = self.roi_levels(feats)
+        obj, regs = self.rpn["head"](feats)
+        logits, deltas = flatten_rpn_outputs(obj, regs)
+        logits = [x.to(torch.float32) for x in logits]
+        deltas = [x.to(torch.float32) for x in deltas]
+        anchors = self._grid_anchors(feats)
+        # the reference detaches its proposals
+        props, _, pvalid = select_proposals([x.detach() for x in logits],
+                                            [x.detach() for x in deltas], anchors,
+                                            image_sizes, rpn_cfg, training=True)
+        gt_boxes, gt_valid = gt["boxes"], gt["valid"]
+        all_props = torch.cat([props, gt_boxes], dim=1)
+        all_valid = torch.cat([pvalid, gt_valid], dim=1)
+        anchors_all = torch.cat(anchors)
+        if draws is None:
+            draws = {
+                k: torch.rand((b, n), generator=generator, device=generator.device).to(dev)
+                for k, n in (("rpn", anchors_all.shape[0]), ("roi", all_props.shape[1]))}
+
+        # --- RPN loss over all anchors (per-image means, summed) ----------
+        loss_obj, loss_box = det_losses.rpn_loss(
+            torch.cat(logits, dim=1), torch.cat(deltas, dim=1), anchors_all, gt_boxes,
+            gt_valid, draws["rpn"], rpn_cfg.batch_size_per_image, rpn_cfg.positive_fraction,
+            rpn_cfg.fg_iou_thresh, rpn_cfg.bg_iou_thresh)
+
+        # --- RoI sampling, GTs appended -------------------------------------
+        matched, labels, sample = assign_and_sample(
+            all_props, all_valid, gt_boxes, gt["labels"], gt_valid, draws["roi"],
+            rh.batch_size_per_image, rh.positive_fraction, rh.fg_iou_thresh, rh.bg_iou_thresh)
+        take = lambda a, idx: torch.take_along_dim(a, idx, dim=1)  # noqa: E731
+        s_idx = sample.idx
+        s_props = take(all_props, s_idx[..., None])
+        s_labels, s_matched, s_valid = take(labels, s_idx), take(matched, s_idx), sample.valid
+
+        # --- box branch (K2 at 7x7) -----------------------------------------
+        class_logits, box_deltas = self.box_branch(levels, s_props)
+        reg_targets = encode_boxes(take(gt_boxes, s_matched[..., None]), s_props,
+                                   rh.bbox_reg_weights)
+        flat = lambda x: x.reshape((-1,) + x.shape[2:])  # noqa: E731
+        cls_sum, box_sum, samp_n = det_losses.fastrcnn_loss_parts(
+            flat(class_logits), flat(box_deltas), flat(s_labels), flat(reg_targets),
+            flat(s_valid))
+
+        # --- mask branch (K2 at 14x14; the sampler packs positives first) ---
+        m = min(num_mask_slots, s_props.shape[1])
+        m_props, m_valid = s_props[:, :m], sample.is_pos[:, :m]
+        m_matched, m_labels = s_matched[:, :m], s_labels[:, :m]
+        roi14 = self._roi_align(levels, m_props, rh.mask_roi_output)
+        mask_logits = self.mask_branch(roi14)
+        mask_t = det_losses.mask_targets_from_crops(gt["mask_crops"].to(torch.float32),
+                                                    gt_boxes, m_props, m_matched)
+        mask_sum, mask_n = det_losses.maskrcnn_loss_parts(mask_logits, flat(mask_t),
+                                                          flat(m_labels), flat(m_valid))
+
+        # --- match-branch RoIs: top-IoU positives per GT --------------------
+        k = num_match_slots
+        slot_idx, slot_valid = _select_match_slots(m_props, m_valid, gt_boxes, gt_valid, k)
+        mt_matched = take(m_matched, slot_idx)
+        rows = (torch.arange(b, device=dev)[:, None] * m + slot_idx).reshape(-1)
+        mt_roi = roi14[rows].to(torch.float32)
+        parts = {"obj_sum": loss_obj.sum(), "rpn_box_sum": loss_box.sum(),
+                 "cls_sum": cls_sum, "box_sum": box_sum, "samp_n": samp_n,
+                 "mask_sum": mask_sum, "mask_n": mask_n}
+        meta = {"pair_ids": flat(take(gt["pair_ids"], mt_matched)),
+                "styles": flat(take(gt["styles"], mt_matched)),
+                "src": gt["source"].repeat_interleave(k),
+                "valid": flat(slot_valid)}
+        return parts, mt_roi, meta
+
+    def train_export(self, images, image_sizes, gt, draws=None, generator=None,
+                     num_match_slots: int = 8, num_mask_slots: int = 128):
+        """One orientation bucket's share of a phase-1 step: (detector loss
+        parts, match RoIs [B*k, 256, 14, 14], slot metadata), with the
+        graph kept for the step's single backward."""
+        return self._train_core(images, image_sizes, gt, draws, generator, num_match_slots,
+                                num_mask_slots)
+
+    def match_loss_from_rois(self, rois: torch.Tensor, meta: Dict[str, torch.Tensor]
+                             ) -> torch.Tensor:
+        """The supervised match loss over exported match-slot RoIs [N, 256,
+        14, 14] f32.  The trunk's BatchNorm trains over the valid rows of
+        exactly these slots: pass the whole batch's slots, never one
+        bucket's."""
+        mp = self.roi_heads["match_predictor"]
+        sv = meta["valid"]
+        desc = mp.descriptors(rois, valid=sv, train=True)
+        logits = mp.score_pairs(desc, desc)
+        return match_loss_supervised(logits, meta["pair_ids"], meta["styles"],
+                                     meta["pair_ids"], meta["styles"],
+                                     sv & (meta["src"] == 0), sv & (meta["src"] == 1),
+                                     require_nonzero_style=True)
+
+    @staticmethod
+    def det_losses_from_parts(parts: Dict[str, torch.Tensor], n_images: int,
+                              mask_px: int = 28 * 28) -> Dict[str, torch.Tensor]:
+        """Normalize detector-loss parts (summed over the buckets of a batch)
+        as the fused batch does."""
+        samp_n = parts["samp_n"].clamp(min=1)
+        return {
+            "loss_objectness": parts["obj_sum"] / n_images,
+            "loss_rpn_box_reg": parts["rpn_box_sum"] / n_images,
+            "loss_classifier": parts["cls_sum"] / samp_n,
+            "loss_box_reg": parts["box_sum"] / samp_n,
+            "loss_mask": parts["mask_sum"] / (parts["mask_n"].clamp(min=1) * mask_px),
+        }
+
+    def training_losses(self, images, image_sizes, gt, draws=None, generator=None,
+                        num_match_slots: int = 8, num_mask_slots: int = 128
+                        ) -> Dict[str, torch.Tensor]:
+        """The supervised Match R-CNN losses of one canvas batch (the
+        reference's phase-1 forward in training mode)."""
+        parts, rois, meta = self._train_core(images, image_sizes, gt, draws, generator,
+                                             num_match_slots, num_mask_slots)
+        losses = self.det_losses_from_parts(parts, images.shape[0])
+        losses["loss_match"] = self.match_loss_from_rois(rois, meta)
+        return losses
 
 
 def _lecun_std(w: torch.Tensor) -> float:
@@ -211,9 +405,15 @@ def init_parameters(model: MatchRCNN, generator: torch.Generator) -> MatchRCNN:
 
 
 def init_model(cfg: ModelConfig, video: bool = False, seed: int = 0,
-               device="cpu") -> MatchRCNN:
+               device=None) -> MatchRCNN:
     """A MatchRCNN with random weights made from ``seed`` on a CPU
-    generator (the same weights on every device), moved to ``device``."""
+    generator (the same weights on every device), moved to ``device``: the
+    CUDA device unless the caller asks for another (``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_model: no CUDA device; pass device='cpu' to build "
+                               "the model on the CPU")
+        device = "cuda"
     with torch.device("meta"):
         model = MatchRCNN(cfg, video)
     model = model.to_empty(device="cpu")

@@ -13,8 +13,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from seam_match_rcnn_tpu.config import RPNConfig
-
+from ..config import RPNConfig
 from ..ops import boxes as box_ops
 from ..ops.nms import nms_kept_mask
 

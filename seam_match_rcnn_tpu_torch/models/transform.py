@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from seam_match_rcnn_tpu.config import TransformConfig
+from ..config import TransformConfig
 
 
 @dataclasses.dataclass

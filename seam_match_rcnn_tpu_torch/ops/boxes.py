@@ -73,3 +73,26 @@ def decode_boxes(deltas: torch.Tensor, boxes: torch.Tensor,
     pred_h = torch.exp(dh) * heights
     return torch.stack([pred_ctr_x - 0.5 * pred_w, pred_ctr_y - 0.5 * pred_h,
                         pred_ctr_x + 0.5 * pred_w, pred_ctr_y + 0.5 * pred_h], dim=-1)
+
+
+def encode_boxes(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+                 weights: Tuple[float, float, float, float]) -> torch.Tensor:
+    """torchvision ``BoxCoder.encode_single``: regression targets [..., 4] of
+    ``reference_boxes`` relative to ``proposals``."""
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0]
+    ex_h = proposals[..., 3] - proposals[..., 1]
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0]
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1]
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+    # guard padded or degenerate boxes against a division or log of 0
+    ex_w, ex_h = ex_w.clamp(min=1e-8), ex_h.clamp(min=1e-8)
+    gt_w, gt_h = gt_w.clamp(min=1e-8), gt_h.clamp(min=1e-8)
+    tx = wx * (gt_cx - ex_cx) / ex_w
+    ty = wy * (gt_cy - ex_cy) / ex_h
+    tw = ww * torch.log(gt_w / ex_w)
+    th = wh * torch.log(gt_h / ex_h)
+    return torch.stack([tx, ty, tw, th], dim=-1)

@@ -1,12 +1,16 @@
-"""Kernel K2: multilevel RoIAlign forward (``csrc/roi_align.cu``).
+"""Kernels K2 and K5: multilevel RoIAlign forward (``csrc/roi_align.cu``)
+and its adjoint (``csrc/roi_adjoint.cu``), paired in ``RoIAlignFunction``.
 
-Replaces ``seam_match_rcnn_tpu/ops/pallas_roi_align_resident.py``
-(``pallas_roi_align_resident``).  The kernel computes the exact semantics of
-the plain version, ``ops/roi_align.multilevel_roi_align``, in natural roi
-order: no window clamp, no tile sort, no ``order`` output.  See the source
-note in ``csrc/roi_align.cu`` for what bounds it and why it wants
-channels_last features.  Forward only: the gradient (kernel K5) comes with
-training.
+K2 replaces ``seam_match_rcnn_tpu/ops/pallas_roi_align_resident.py``
+(``pallas_roi_align_resident``).  It computes the exact semantics of the
+plain version, ``ops/roi_align.multilevel_roi_align``, in natural roi order:
+no window clamp, no tile sort, no ``order`` output.  K5 replaces
+``seam_match_rcnn_tpu/ops/pallas_roi_adjoint.py``
+(``multilevel_roi_align_adjoint_pallas``) and computes the exact adjoint of
+K2, ``ops/roi_align.multilevel_roi_align_adjoint``.  The source notes in the
+``.cu`` files say what bounds each kernel.  ``RoIAlignFunction`` is the
+counterpart of ``pallas_roi_align_resident_trainable``: forward K2, backward
+K5, no gradient for the rois (the reference detaches its proposals).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import native
-from .roi_align import SPATIAL_SCALES, multilevel_roi_align
+from .roi_align import SPATIAL_SCALES, multilevel_roi_align, multilevel_roi_align_adjoint
 
 
 def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
@@ -25,7 +29,15 @@ def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size:
     """features: P2..P5 as [B, C, H_l, W_l]; rois [B, R, 4] -> [B*R, C, out,
     out] in the features' dtype.  CPU tensors take the plain version; CUDA
     tensors launch the kernel, which needs channels_last features in f32 or
-    bf16 and f32 rois."""
+    bf16 and f32 rois.  When a level requires a gradient, the call goes
+    through ``RoIAlignFunction``, whose backward is K5."""
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return RoIAlignFunction.apply(rois, output_size, sampling_ratio, tuple(spatial_scales),
+                                      *features)
+    return _forward(features, rois, output_size, sampling_ratio, spatial_scales)
+
+
+def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
     if rois.device.type == "cpu":
         return multilevel_roi_align(features, rois, output_size, sampling_ratio,
                                     spatial_scales)
@@ -61,3 +73,81 @@ def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size:
 
 
 roi_align.launches = 0
+
+
+def roi_align_adjoint(grad: torch.Tensor, rois: torch.Tensor,
+                      level_shapes: Sequence[Tuple[int, int]], dtype: torch.dtype,
+                      sampling_ratio: int = 2,
+                      spatial_scales: Tuple[float, ...] = SPATIAL_SCALES
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``roi_align`` with respect to each level: grad [B, R,
+    out, out, C] f32 cotangent (NHWC bins), rois [B, R, 4] -> per level [B,
+    C, H_l, W_l] in ``dtype``, channels_last.  CPU tensors take the plain
+    version; CUDA tensors launch K5, which accumulates in an f32 scratch
+    zeroed here and cast to ``dtype`` at the end.
+
+    The kernel adds with atomics, so the order of the f32 additions, and the
+    last bits of a sum, change from run to run; the plain version on the CPU
+    is deterministic."""
+    if rois.device.type == "cpu":
+        grads = multilevel_roi_align_adjoint(grad, rois, level_shapes, sampling_ratio,
+                                             spatial_scales)
+        return tuple(g.to(dtype).permute(0, 3, 1, 2) for g in grads)
+    name = "roi_align_adjoint"
+    req = native.require
+    req(rois.device.type == "cuda", name, f"rois on {rois.device}, not cuda")
+    req(len(level_shapes) == 4 and len(spatial_scales) == 4, name, "needs the 4 levels P2..P5")
+    req(dtype in (torch.float32, torch.bfloat16), name, f"features dtype {dtype}")
+    req(rois.dtype == torch.float32 and rois.dim() == 3 and rois.shape[-1] == 4
+        and rois.is_contiguous(), name, "rois must be contiguous f32 [B, R, 4]")
+    b, r = rois.shape[:2]
+    req(grad.device == rois.device and grad.dtype == torch.float32 and grad.dim() == 5
+        and grad.shape[:2] == (b, r) and grad.shape[2] == grad.shape[3]
+        and grad.is_contiguous(), name, "grad must be contiguous f32 [B, R, out, out, C]")
+    o, c = grad.shape[2], grad.shape[4]
+    sizes = [b * h * w * c for h, w in level_shapes]
+    scratch = torch.zeros(sum(sizes), dtype=torch.float32, device=rois.device)
+    levels, start = [], 0
+    for (h, w), size in zip(level_shapes, sizes):
+        levels.append(scratch[start:start + size].view(b, h, w, c))
+        start += size
+    n = b * r
+    if n:
+        with torch.cuda.device(rois.device):
+            status = native.library().seam_roi_align_adjoint(
+                *[native.ptr(g) for g in levels], *[h for h, _ in level_shapes],
+                *[w for _, w in level_shapes], *[float(s) for s in spatial_scales],
+                native.ptr(grad), native.ptr(rois), n, r, c, o, sampling_ratio,
+                native.stream(rois.device))
+        native.check(status, name)
+        roi_align_adjoint.launches += 1
+    return tuple(g.to(dtype).permute(0, 3, 1, 2) for g in levels)
+
+
+roi_align_adjoint.launches = 0
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """Differentiable multilevel RoIAlign: forward K2 (or its plain version
+    for CPU tensors), backward K5 (or the plain adjoint).  The rois get no
+    gradient.  ``apply(rois, output_size, sampling_ratio, spatial_scales,
+    *features)``."""
+
+    @staticmethod
+    def forward(ctx, rois, output_size, sampling_ratio, spatial_scales, *features):
+        ctx.save_for_backward(rois)
+        ctx.meta = (output_size, sampling_ratio, spatial_scales,
+                    [tuple(f.shape[2:]) for f in features], features[0].dtype)
+        return _forward(features, rois, output_size, sampling_ratio, spatial_scales)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        output_size, sampling_ratio, spatial_scales, level_shapes, dtype = ctx.meta
+        b, r = rois.shape[:2]
+        # [B*R, C, o, o] (a bf16 cotangent for bf16 features) -> f32 NHWC bins
+        g = grad.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        g = g.view(b, r, output_size, output_size, -1)
+        grads = roi_align_adjoint(g, rois.contiguous(), level_shapes, dtype, sampling_ratio,
+                                  spatial_scales)
+        return (None, None, None, None) + grads

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile with one ``nvcc`` call into one shared library with a
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into one shared library with a
 plain C interface, loaded with ``ctypes``; no PyTorch headers are involved,
 so a build takes seconds.  The library is named by a hash of the sources
 and the flags, under ``build/seam_torch_kernels/`` at the root of the
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     # like the plain PyTorch version's separate ops; kernels that want an FMA
     # call fmaf() explicitly
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,6 +41,10 @@ _SIGNATURES = {
     # N, R, C, output_size, sampling_ratio, is_bf16, stream
     "seam_roi_align_forward": [_P] * 4 + [_I] * 8 + [_F] * 4
     + [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # 4 f32 gradient level pointers, 4 heights, 4 widths, 4 scales,
+    # cotangent, rois, N, R, C, output_size, sampling_ratio, stream
+    "seam_roi_align_adjoint": [_P] * 4 + [_I] * 8 + [_F] * 4
+    + [_P, _P, _I, _I, _I, _I, _I, _P],
     # seqs, mask, 11 weight pointers, out, S, T, stream
     "seam_nlb_aggregate": [_P] * 14 + [_I, _I, _P],
     # x, y, v, c0, out, Q, G, C, stream
@@ -83,12 +88,29 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    report = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+    nvcc = _nvcc()
+    units = [src for src in _sources() if src.suffix == ".cu"]
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in units]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(units, objs)]
+    report, failed = "", []
+    for src, proc in zip(units, procs):
+        log = proc.communicate()[0]
+        report += f"== {src.name}\n{log}"
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        report += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{report}")
     out.with_suffix(".log").write_text(report)
     os.replace(tmp, out)  # atomic: concurrent builders never load a torn file
     return out

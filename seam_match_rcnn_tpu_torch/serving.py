@@ -19,11 +19,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from seam_match_rcnn_tpu.config import EvalConfig
-from seam_match_rcnn_tpu.eval.tracking import build_tracklets
-
+from .config import EvalConfig
 from .eval.gallery import score_matrix
 from .eval.runner import InferenceRunner
+from .eval.tracking import build_tracklets
 from .models.matchrcnn import MatchRCNN
 
 

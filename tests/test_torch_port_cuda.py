@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K5 against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; every test skips (through the fixture below) when
 ``torch.cuda.is_available()`` is False.  On the machine with the card, run
@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem
-from seam_match_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
+from seam_match_rcnn_tpu_torch.ops.roi_align import (multilevel_roi_align,
+                                                      multilevel_roi_align_adjoint)
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 
 pytestmark = pytest.mark.cuda
@@ -81,6 +82,85 @@ def test_roi_align_kernel_matches_plain(card, dtype, o):
         assert np.all(np.abs(got - want) <= _bf16_ulp(want) + 1e-6)
 
 
+K5_LEVELS = ((96, 192), (48, 96), (24, 48), (12, 24))  # P2..P5 of a 384x768 canvas
+
+
+def _k5_rois(rng, b, n, kind):
+    if kind == "borders":  # on and beyond the canvas edges, degenerate, tiny
+        base = np.asarray([[0, 0, 40, 40], [726, 340, 768, 384], [-20, -20, 30, 30],
+                           [740, 0, 790, 384], [0, 370, 768, 400], [100, 100, 100, 100],
+                           [0, 0, 2, 2], [0, 0, 768, 384]], np.float32)
+        return np.stack([base[rng.permutation(len(base))] for _ in range(b)])
+    if kind == "wide":
+        # slivers that map to P2 (small area) yet span 150-190 cells there:
+        # three 64-cell bands, beyond the TPU kernel's 2x2 bands
+        x1, y1 = rng.uniform(0, 8, (b, n)), rng.uniform(0, 370, (b, n))
+        return np.stack([x1, y1, x1 + rng.uniform(600, 760, (b, n)),
+                         y1 + rng.uniform(2, 6, (b, n))], -1).astype(np.float32)
+    cx, cy = rng.uniform(-8, 776, (b, n)), rng.uniform(-8, 392, (b, n))
+    bw = np.exp(rng.uniform(np.log(2), np.log(600), (b, n)))
+    bh = bw * np.exp(rng.uniform(np.log(0.3), np.log(3), (b, n)))
+    return np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype,o,kind,n", [
+    (torch.float32, 7, "mix", 200), (torch.float32, 14, "mix", 50),
+    (torch.bfloat16, 7, "mix", 200), (torch.bfloat16, 14, "mix", 50),
+    (torch.float32, 7, "borders", 8), (torch.float32, 14, "wide", 6),
+    (torch.bfloat16, 7, "empty", 0)])
+def test_roi_align_adjoint_kernel_matches_plain(card, dtype, o, kind, n):
+    rng = np.random.RandomState(o + n)
+    b, c = 2, 64
+    rois = (_k5_rois(rng, b, n, kind) if kind != "empty"
+            else np.zeros((b, 0, 4), np.float32))
+    g = torch.from_numpy(rng.randn(b, rois.shape[1], o, o, c).astype(np.float32)).to(card)
+    rois = torch.from_numpy(rois).to(card)
+    n0 = cuda_roi_align.roi_align_adjoint.launches
+    got = cuda_roi_align.roi_align_adjoint(g, rois, K5_LEVELS, dtype)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align_adjoint.launches == n0 + (1 if n else 0)
+    want = multilevel_roi_align_adjoint(g, rois, K5_LEVELS)
+    mass = multilevel_roi_align_adjoint(g.abs(), rois, K5_LEVELS)  # sum of |summands|
+    for lv, (a, w, m) in enumerate(zip(got, want, mass)):
+        h, wd = K5_LEVELS[lv]
+        assert a.shape == (b, c, h, wd) and a.dtype == dtype
+        assert a.is_contiguous(memory_format=torch.channels_last)
+        a = a.permute(0, 2, 3, 1).float().cpu().numpy()
+        w, m = w.cpu().numpy(), m.cpu().numpy()
+        # the same f32 summands added in another order (atomics, which
+        # reorder from run to run): |error| <= 1e-5 x the sum of |summands|
+        tol = 1e-5 * m + 1e-7
+        if dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(w)  # one final rounding to bf16 on each side
+        assert np.all(np.abs(a - w) <= tol), f"level {lv}"
+    if kind == "empty":
+        assert all(float(a.abs().max()) == 0.0 for a in got)
+
+
+def test_roi_align_function_backward_on_the_card(card):
+    rng = np.random.RandomState(7)
+    b, n, c = 2, 40, 32
+    base = [torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(card, torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for h, w in K5_LEVELS]
+    rois = torch.from_numpy(_k5_rois(rng, b, n, "mix")).to(card)
+    g = torch.from_numpy(rng.randn(b * n, c, 7, 7).astype(np.float32)).to(card, torch.bfloat16)
+    feats = [f.clone().requires_grad_(True) for f in base]
+    n0, a0 = cuda_roi_align.roi_align.launches, cuda_roi_align.roi_align_adjoint.launches
+    out = cuda_roi_align.roi_align(feats, rois, 7)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align.launches == n0 + 1
+    assert cuda_roi_align.roi_align_adjoint.launches == a0 + 1
+    gf = g.float().permute(0, 2, 3, 1).reshape(b, n, 7, 7, c).contiguous()
+    want = multilevel_roi_align_adjoint(gf, rois, K5_LEVELS)
+    mass = multilevel_roi_align_adjoint(gf.abs(), rois, K5_LEVELS)
+    for f, w, m in zip(feats, want, mass):
+        assert f.grad.dtype == torch.bfloat16 and f.grad.shape == f.shape
+        a = f.grad.float().permute(0, 2, 3, 1).cpu().numpy()
+        w, m = w.cpu().numpy(), m.cpu().numpy()
+        assert np.all(np.abs(a - w) <= 1e-5 * m + 1e-7 + _bf16_ulp(w))
+
+
 @pytest.mark.parametrize("s,t", [(1, 1), (1, 10), (64, 10), (5, 32)])
 def test_nlb_kernel_matches_plain(card, s, t):
     rng = np.random.RandomState(s * 100 + t)
@@ -125,3 +205,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         cuda_kernels.nlb_aggregate(torch.zeros((1, 33, 256), device=card),
                                    torch.ones((1, 33), device=card), {})
+    with pytest.raises(ValueError):  # a bf16 cotangent: the kernel takes f32
+        cuda_roi_align.roi_align_adjoint(torch.zeros((1, 2, 7, 7, 8), device=card,
+                                                     dtype=torch.bfloat16),
+                                         torch.zeros((1, 2, 4), device=card),
+                                         K5_LEVELS, torch.float32)

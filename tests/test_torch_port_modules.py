@@ -56,7 +56,7 @@ def models():
         "bias": (rng.randn(256) * 0.05).astype(np.float32)}
     variables = {"params": params,
                  "batch_stats": jax.tree.map(np.asarray, variables["batch_stats"])}
-    port = load_jax_variables(init_model(CFG, video=True), variables)
+    port = load_jax_variables(init_model(CFG, video=True, device="cpu"), variables)
     images = rng.rand(1, H, W, 3).astype(np.float32)
     sizes = np.asarray([[H, W - 8]], np.int32)
     return jmodel, variables, port, images, sizes

@@ -54,7 +54,7 @@ def test_retrieval_matches_jax(tmp_path):
     jgal = jretr.build_gallery(shops, keys=keys)
     want = jretr.retrieve(frames, jgal, k=2)
 
-    retr = SeamRetrieval(load_jax_variables(init_model(cfg, video=True), variables),
+    retr = SeamRetrieval(load_jax_variables(init_model(cfg, video=True, device="cpu"), variables),
                          cfg=ecfg, chunk=4)
     gal = Gallery.load(retr.build_gallery(shops, keys=keys).save(str(tmp_path / "g")))
     got = retr.retrieve(frames, gal, k=2)

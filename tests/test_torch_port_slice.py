@@ -50,7 +50,7 @@ def test_serving_forward_matches_jax():
     want = jax.tree.map(np.asarray, jmodel.apply(variables, jnp.asarray(images),
                                                  jnp.asarray(sizes), method=fwd))
 
-    port = load_jax_variables(init_model(cfg, video=True), variables)
+    port = load_jax_variables(init_model(cfg, video=True, device="cpu"), variables)
     out = port.inference(torch.from_numpy(images).permute(0, 3, 1, 2), torch.from_numpy(sizes))
     roi = out["roi_features"]
     aggr = port.aggregator_descriptors(roi.reshape((-1,) + roi.shape[2:])).reshape(1, -1, 256)

@@ -32,7 +32,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import synthetic_image  # noqa: E402
-from seam_match_rcnn_tpu.config import serving_model_config  # noqa: E402
+from seam_match_rcnn_tpu_torch.config import serving_model_config  # noqa: E402
 from seam_match_rcnn_tpu_torch.models.detection import postprocess_detections  # noqa: E402
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model  # noqa: E402
 from seam_match_rcnn_tpu_torch.serving import SeamRetrieval  # noqa: E402
@@ -57,14 +57,19 @@ def stage_times(model, dev, reps=5):
     for _ in range(reps + 1):
         feats = timed("backbone", lambda: model.features(images))
         props, _, pvalid = timed("proposals", lambda: model.proposals(feats, sizes))
-        logits, deltas = timed("box_branch", lambda: model.box_branch(feats, props))
+
+        def box_branch():  # the channels_last copy of P2..P5, RoIAlign and the head
+            lv = model.roi_levels(feats)
+            return lv, model.box_branch(lv, props)
+
+        levels, (logits, deltas) = timed("box_branch", box_branch)
         det = timed("postprocess", lambda: postprocess_detections(
             logits, deltas, props, pvalid, sizes, cfg.roi_heads, fallback_score=0.1))
-        roi = timed("roi_align_14x14", lambda: model._roi_align(feats, det.boxes, 14)
+        roi = timed("roi_align_14x14", lambda: model._roi_align(levels, det.boxes, 14)
                     .to(torch.float32))
         timed("match_trunk", lambda: model.match_descriptors(roi))
         timed("aggregator_trunk", lambda: model.aggregator_descriptors(roi))
-        del feats, props, logits, deltas, det, roi
+        del feats, levels, props, logits, deltas, det, roi
     # the first run is the warm-up
     return {k: statistics.median(v[1:]) for k, v in stages.items()}
 
