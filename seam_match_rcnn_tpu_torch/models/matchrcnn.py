@@ -3,8 +3,8 @@
 Port of ``seam_match_rcnn_tpu/models/matchrcnn.py``.  Serving: backbone ->
 RPN -> proposal NMS -> box branch -> class NMS -> 14x14 RoIAlign on the
 detections -> match descriptors, plus the temporal aggregator's descriptors
-and sequence aggregation.  Phase-1 training (``_train_core`` and the
-methods built on it): RPN loss over all anchors, RoI sampling with the GTs
+and sequence aggregation.  Phase-1 training (``train_export`` per canvas
+bucket, ``training_losses`` per batch): RPN loss over all anchors, RoI sampling with the GTs
 appended, box branch (K2 at 7x7), mask branch and match-slot RoIs (K2 at
 14x14), the supervised match loss; the RoIAlign backward is K5.  Module
 names follow the reference's torchvision state dict (``backbone.body.*``,
@@ -93,7 +93,7 @@ class MatchRCNN(nn.Module):
         self.video = video
         dt = getattr(torch, cfg.compute_dtype)
         tdt = getattr(torch, cfg.match.trunk_dtype)
-        self.backbone = BackboneWithFPN(dt, cfg.stem_backend, cfg.freeze_backbone_stages)
+        self.backbone = BackboneWithFPN(dt, cfg.stem_backend)
         self.rpn = nn.ModuleDict({"head": RPNHead(cfg.anchors.num_anchors_per_location, dt)})
         heads = {
             "box_head": TwoMLPHead(256, rh.box_roi_output, dt),
@@ -214,13 +214,14 @@ class MatchRCNN(nn.Module):
 
     # ---- phase-1 training ------------------------------------------------
 
-    def _train_core(self, images: torch.Tensor, image_sizes: torch.Tensor,
-                    gt: Dict[str, torch.Tensor], draws: Optional[Dict[str, torch.Tensor]] = None,
-                    generator: Optional[torch.Generator] = None, num_match_slots: int = 8,
-                    num_mask_slots: int = 128):
-        """The shared phase-1 forward: detector losses as unnormalized parts
-        (their normalizers span the whole batch, see
-        ``det_losses_from_parts``), the match-slot RoIs and their metadata.
+    def train_export(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                     gt: Dict[str, torch.Tensor], draws: Optional[Dict[str, torch.Tensor]] = None,
+                     generator: Optional[torch.Generator] = None, num_match_slots: int = 8,
+                     num_mask_slots: int = 128):
+        """One canvas bucket's share of a phase-1 step: detector losses as
+        unnormalized parts (their normalizers span the whole batch, see
+        ``det_losses_from_parts``), the match-slot RoIs and their metadata,
+        with the graph kept for the step's single backward.
 
         images [B, 3, H, W] in [0, 1]; image_sizes [B, 2]; gt: boxes [B, G,
         4], labels, valid, pair_ids, styles [B, G], source [B] (0 street, 1
@@ -303,14 +304,6 @@ class MatchRCNN(nn.Module):
                 "valid": flat(slot_valid)}
         return parts, mt_roi, meta
 
-    def train_export(self, images, image_sizes, gt, draws=None, generator=None,
-                     num_match_slots: int = 8, num_mask_slots: int = 128):
-        """One orientation bucket's share of a phase-1 step: (detector loss
-        parts, match RoIs [B*k, 256, 14, 14], slot metadata), with the
-        graph kept for the step's single backward."""
-        return self._train_core(images, image_sizes, gt, draws, generator, num_match_slots,
-                                num_mask_slots)
-
     def match_loss_from_rois(self, rois: torch.Tensor, meta: Dict[str, torch.Tensor]
                              ) -> torch.Tensor:
         """The supervised match loss over exported match-slot RoIs [N, 256,
@@ -340,14 +333,24 @@ class MatchRCNN(nn.Module):
             "loss_mask": parts["mask_sum"] / (parts["mask_n"].clamp(min=1) * mask_px),
         }
 
-    def training_losses(self, images, image_sizes, gt, draws=None, generator=None,
-                        num_match_slots: int = 8, num_mask_slots: int = 128
+    def training_losses(self, buckets: Sequence[Dict],
+                        generator: Optional[torch.Generator] = None,
+                        draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None
                         ) -> Dict[str, torch.Tensor]:
-        """The supervised Match R-CNN losses of one canvas batch (the
-        reference's phase-1 forward in training mode)."""
-        parts, rois, meta = self._train_core(images, image_sizes, gt, draws, generator,
-                                             num_match_slots, num_mask_slots)
-        losses = self.det_losses_from_parts(parts, images.shape[0])
+        """The supervised Match R-CNN losses of one batch, given as one dict
+        (images, sizes, gt; see ``train_export``) per canvas bucket, with the
+        fused batch's semantics: the detector parts are summed over the
+        buckets and divided by the batch-wide normalizers, and the match loss
+        is computed once over every bucket's slots (its BatchNorm trains over
+        all of them, and street/shop pairs cross buckets).  The samplers draw
+        from ``generator`` or take ``draws`` (one dict per bucket)."""
+        draws = draws if draws is not None else [None] * len(buckets)
+        exports = [self.train_export(b["images"], b["sizes"], b["gt"], d, generator)
+                   for b, d in zip(buckets, draws)]
+        parts = {k: sum(e[0][k] for e in exports) for k in exports[0][0]}
+        rois = torch.cat([e[1] for e in exports])
+        meta = {k: torch.cat([e[2][k] for e in exports]) for k in exports[0][2]}
+        losses = self.det_losses_from_parts(parts, sum(b["images"].shape[0] for b in buckets))
         losses["loss_match"] = self.match_loss_from_rois(rois, meta)
         return losses
 

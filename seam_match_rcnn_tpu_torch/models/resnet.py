@@ -7,10 +7,10 @@ Port of ``seam_match_rcnn_tpu/models/resnet.py`` (torchvision
 (``ops/cuda_stem.fused_stem``); ``"xla"`` runs conv1 + FrozenBN + relu +
 maxpool as separate torch ops.  Both read the same parameters.
 
-``freeze_stages`` (``ModelConfig.freeze_backbone_stages``) freezes the stem
-and layer1 as torchvision's ``trainable_layers=3`` does: their parameters get
-``requires_grad=False`` and layer1's output is detached, so no backward runs
-below layer2.  K1 has no backward; it is trainable only this way.
+The stem and layer1 are frozen as torchvision's ``trainable_layers=3``
+freezes them: their parameters never require a gradient, so no backward
+runs below layer2 (the JAX package's ``freeze_backbone_stages`` stop and its
+optimizer mask, in one).  K1 has no backward and needs none.
 """
 
 from __future__ import annotations
@@ -56,9 +56,8 @@ class ResNet50(nn.Module):
     """Returns C2..C5 (strides 4/8/16/32)."""
 
     def __init__(self, dt: torch.dtype, stem_backend: str = "xla",
-                 block_counts: Sequence[int] = (3, 4, 6, 3), freeze_stages: bool = False):
+                 block_counts: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
-        self.freeze_stages = freeze_stages
         if stem_backend not in ("xla", "pallas"):
             raise ValueError(f"unknown stem_backend {stem_backend!r}: 'xla' or 'pallas'")
         self.dt = dt
@@ -74,9 +73,8 @@ class ResNet50(nn.Module):
                 inplanes = planes * 4
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
-        if freeze_stages:
-            for mod in (self.conv1, self.layer1):
-                mod.requires_grad_(False)
+        for mod in (self.conv1, self.layer1):
+            mod.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         if self.stem_backend == "pallas":
@@ -88,8 +86,6 @@ class ResNet50(nn.Module):
         outs = []
         for i in range(1, 5):
             x = getattr(self, f"layer{i}")(x)
-            if i == 1 and self.freeze_stages:
-                x = x.detach()
             outs.append(x)
         return tuple(outs)
 
@@ -119,10 +115,9 @@ class FPN(nn.Module):
 
 
 class BackboneWithFPN(nn.Module):
-    def __init__(self, dt: torch.dtype, stem_backend: str = "xla",
-                 freeze_stages: bool = False):
+    def __init__(self, dt: torch.dtype, stem_backend: str = "xla"):
         super().__init__()
-        self.body = ResNet50(dt, stem_backend, freeze_stages=freeze_stages)
+        self.body = ResNet50(dt, stem_backend)
         self.fpn = FPN(dt)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:

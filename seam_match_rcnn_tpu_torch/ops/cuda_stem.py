@@ -40,10 +40,10 @@ def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
     """x [B, 3, H, W] (normalized; H, W multiples of 4) -> NCHW [B, 64, H/4,
     W/4] in ``out_dtype``.  CPU tensors take the plain version.  Forward
     only, as the TPU kernel: it raises when its input or weights need a
-    gradient (train with ``freeze_backbone_stages``, which freezes the stem)."""
+    gradient (the backbone keeps the stem frozen, ``models/resnet.py``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, conv_w, bn_scale, bn_shift)):
-        raise RuntimeError("fused_stem has no backward: freeze the stem "
-                           "(ModelConfig.freeze_backbone_stages) or use stem_backend='xla'")
+        raise RuntimeError("fused_stem has no backward: keep the stem frozen "
+                           "or use stem_backend='xla'")
     if x.device.type == "cpu":
         return stem_plain(x, conv_w, bn_scale, bn_shift, out_dtype)
     name = "fused_stem"

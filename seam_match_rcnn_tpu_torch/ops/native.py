@@ -24,8 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "seam_torch_kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    *ARCH, "-std=c++17", "-O3",
     # no automatic multiply-add contraction: the RoIAlign geometry must round
     # like the plain PyTorch version's separate ops; kernels that want an FMA
     # call fmaf() explicitly
@@ -101,8 +102,7 @@ def build() -> Path:
         if proc.returncode != 0:
             failed.append(src.name)
     if not failed:
-        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                               "-o", str(tmp), *map(str, objs)],
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
         report += link.stdout + link.stderr
         if link.returncode != 0:

@@ -14,16 +14,12 @@ from typing import Callable, Dict, Iterable, Sequence
 
 import torch
 
-_FROZEN_PREFIXES = ("backbone.body.conv1.", "backbone.body.bn1.", "backbone.body.layer1.")
-
-
 def backbone_frozen_mask(model: torch.nn.Module) -> Dict[str, bool]:
-    """Parameter name -> trainable, as the reference's optimizer sees it:
-    torchvision's ``trainable_layers=3`` freezes the stem (conv1, bn1) and
-    layer1.  The backbone's FrozenBatchNorm2d affines are buffers here, so
-    they are never parameters."""
-    return {name: not name.startswith(_FROZEN_PREFIXES)
-            for name, _ in model.named_parameters()}
+    """Parameter name -> trainable, as the reference's optimizer sees it.
+    The backbone marks its frozen stem and layer1 (torchvision's
+    ``trainable_layers=3``) with ``requires_grad=False``; its FrozenBatchNorm2d
+    affines are buffers here, so they are never parameters."""
+    return {name: p.requires_grad for name, p in model.named_parameters()}
 
 
 def multistep_warmup_schedule(base_lr: float, milestones: Sequence[int], gamma: float,
@@ -80,9 +76,9 @@ class SGD:
 
 def sgd(model: torch.nn.Module, schedule: Callable[[int], float], momentum: float = 0.9,
         weight_decay: float = 0.0, clip_grad_norm: float = 0.0) -> SGD:
-    """SGD over the model's trainable parameters: those ``backbone_frozen_mask``
-    keeps that also require a gradient.  A frozen parameter is simply not in
-    the optimizer, so it gets no update and no momentum or decay state."""
+    """SGD over the parameters ``backbone_frozen_mask`` keeps.  A frozen
+    parameter is simply not in the optimizer, so it gets no update and no
+    momentum or decay state."""
     mask = backbone_frozen_mask(model)
-    return SGD([p for name, p in model.named_parameters() if mask[name] and p.requires_grad],
+    return SGD([p for name, p in model.named_parameters() if mask[name]],
                schedule, momentum, weight_decay, clip_grad_norm)

@@ -3,13 +3,11 @@
 Port of ``seam_match_rcnn_tpu/train/steps.py``'s ``Phase1Trainer``: one
 optimizer update per batch with the fused batch's semantics, whether the
 batch is one canvas bucket or several (mixed orientations).  In PyTorch the
-several buckets need no rematerialised second forward: each bucket's
-``train_export`` keeps its graph, the match-slot RoIs of all buckets are
-concatenated and the match loss is computed once (its BatchNorm trains over
-every slot of the batch, and street/shop pairs cross buckets), the summed
-detector parts are divided by the batch-wide normalizers, and one
-``backward()`` and one optimizer step follow.  All bucket graphs stay alive
-until that backward: at batch 8 about one fused batch's activations.
+several buckets need no rematerialised second forward:
+``MatchRCNN.training_losses`` keeps every bucket's graph and computes the
+batch's losses at once, and one ``backward()`` and one optimizer step
+follow.  All bucket graphs stay alive until that backward: at batch 8
+about one fused batch's activations.
 
 The JAX package's gradient-accumulation triple (``make_phase1_grad_apply``)
 is an ablation path and is not ported.
@@ -28,7 +26,7 @@ from .optim import SGD
 class Phase1Trainer:
     """``step(batches)`` runs one phase-1 update.  A batch is a dict with
     images [B, 3, H, W] in [0, 1], sizes [B, 2] and gt (see
-    ``MatchRCNN._train_core``), all on the model's device."""
+    ``MatchRCNN.train_export``), all on the model's device."""
 
     def __init__(self, model: MatchRCNN, optimizer: SGD):
         self.model, self.optimizer = model, optimizer
@@ -39,17 +37,8 @@ class Phase1Trainer:
         """batches: one per canvas bucket; the samplers draw from
         ``generator``, or take ``draws`` (one dict per bucket).  Returns the
         detached losses, with their sum as "loss"."""
-        model = self.model
-        draws = draws if draws is not None else [None] * len(batches)
         self.optimizer.zero_grad()
-        exports = [model.train_export(b["images"], b["sizes"], b["gt"], d, generator)
-                   for b, d in zip(batches, draws)]
-        parts = {k: sum(e[0][k] for e in exports) for k in exports[0][0]}
-        rois = torch.cat([e[1] for e in exports])
-        meta = {k: torch.cat([e[2][k] for e in exports]) for k in exports[0][2]}
-        losses = MatchRCNN.det_losses_from_parts(parts, sum(b["images"].shape[0]
-                                                            for b in batches))
-        losses["loss_match"] = model.match_loss_from_rois(rois, meta)
+        losses = self.model.training_losses(batches, generator, draws)
         total = sum(losses.values())
         total.backward()
         self.optimizer.step()

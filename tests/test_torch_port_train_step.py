@@ -4,16 +4,10 @@ package's ``make_phase1_step``, on the CPU.
 Serving profile (tile-resident RoIAlign forward and its adjoint kernel; the
 JAX kernels in interpret mode, the port's wrappers on their plain versions)
 with the f32 stem (``serving_train_cfg`` says why), f32 compute, a 64x64
-canvas.  Both sides start from the
-same weights (``ckpt/from_jax``), take the same sampler draws (from the JAX
-key tree) and the same SGD (momentum 0.9) over the same trainable set.
-
-The learning rate is 1e-3: the two packages round their f32 convolutions
-differently (oneDNN against XLA's), and at random initialisation a ReLU near
-0 or the match trunk's BatchNorm over a handful of slots turns such ulps
-into gradient differences near 1e-3 relative; at lr 0.01 the port against
-itself at 1 and at 4 threads already moves a parameter by 0.8 of the
-tolerance below.
+canvas.  Both sides start from the same weights (``ckpt/from_jax``), take
+the same sampler draws (from the JAX key tree) and the same SGD (lr 0.01,
+momentum 0.9) over the same trainable set; every parameter's update is held
+against JAX's relative to its size (``assert_state_close`` says how).
 """
 
 import torch
@@ -37,7 +31,7 @@ from torch_port_train_common import (assert_losses_close, assert_state_close, fr
                                      to_port_batch)
 
 torch.set_num_threads(2)
-LR = 1e-3
+LR = 0.01
 
 
 def test_fused_step_matches_jax():
@@ -58,7 +52,8 @@ def test_fused_step_matches_jax():
 
     assert_losses_close(got, want)
     assert float(want["loss_mask"]) > 0 and float(want["loss_match"]) > 0
-    assert_state_close(port, state.params, state.batch_stats)
+    worst = assert_state_close(port, variables["params"], state.params, state.batch_stats)
+    print(f"worst parameter update error / its size: {worst:.3e}")
     after = frozen_tensors(port)
     for k, v in frozen.items():
         assert torch.equal(v, after[k]), k

@@ -104,16 +104,42 @@ def assert_losses_close(got, want):
         assert abs(a - b) < 1e-4 * (1 + abs(a)), (k, a, b)
 
 
-def assert_state_close(model, params, batch_stats):
-    """The port's state, mapped back with the JAX package's converter,
-    against the JAX params and BN statistics (tests/test_linked_step.py's
-    tolerance)."""
-    back = convert_state_dict({k: v.detach().numpy() for k, v in model.state_dict().items()})
-    for tree, want in (("params", params), ("batch_stats", batch_stats)):
-        got = dict(jax.tree_util.tree_flatten_with_path(back[tree])[0])
-        leaves = jax.tree_util.tree_flatten_with_path(want)[0]
-        assert len(got) == len(leaves)
-        for path, leaf in leaves:
-            np.testing.assert_allclose(np.asarray(got[path]), np.asarray(leaf), rtol=1e-4,
-                                       atol=1e-5, err_msg=f"{tree}{jax.tree_util.keystr(path)}")
+def assert_state_close(model, params0, params, batch_stats, rtol=5e-3):
+    """The port's state after one step, mapped back with the JAX package's
+    converter, against the JAX state; both started from ``params0``.
 
+    Parameters: each leaf's update (after - before) against JAX's, as
+    ||dp_port - dp_jax|| <= rtol * ||dp_jax|| + 1e-6 * (the norm of the whole
+    JAX update), so every gradient is held relative to its own size, the
+    small ones of layer2-4 and the FPN too.  The second term only admits
+    rounding on the leaves whose gradient is exactly 0 (biases before the
+    match trunk's BatchNorm, shifts cancelled by the pair score's
+    differences).  rtol: at initialisation the f32 backward sends ulps of
+    convolution rounding through ReLU gates and the match BatchNorm over a
+    handful of slots; at lr 0.01 the worst leaf of the two step tests
+    differs by 9.2e-4 of its size from the JAX package's, and the port's
+    own update moves by 3e-4 from one CPU thread count to another.  A
+    missing, zeroed or rescaled gradient shows as an error near 1.  BN
+    statistics: rtol 1e-4, atol 1e-5 (tests/test_linked_step.py's).
+    Returns the worst leaf's error over its size, which the tests print."""
+    back = convert_state_dict({k: v.detach().numpy() for k, v in model.state_dict().items()})
+    flat = lambda tree: dict(jax.tree_util.tree_flatten_with_path(tree)[0])  # noqa: E731
+    got, before, want = flat(back["params"]), flat(params0), flat(params)
+    assert len(got) == len(want)
+    upd = {k: (np.asarray(got[k], np.float64) - np.asarray(before[k], np.float64),
+               np.asarray(want[k], np.float64) - np.asarray(before[k], np.float64))
+           for k in want}
+    floor = 1e-6 * np.sqrt(sum(np.sum(dj ** 2) for _, dj in upd.values()))
+    worst = 0.0
+    for path, (dp, dj) in upd.items():
+        err, size = np.linalg.norm(dp - dj), np.linalg.norm(dj)
+        assert err <= rtol * size + floor, (jax.tree_util.keystr(path), err, size)
+        if size > floor:
+            worst = max(worst, err / size)
+    got = flat(back["batch_stats"])
+    leaves = jax.tree_util.tree_flatten_with_path(batch_stats)[0]
+    assert len(got) == len(leaves)
+    for path, leaf in leaves:
+        np.testing.assert_allclose(np.asarray(got[path]), np.asarray(leaf), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"batch_stats{jax.tree_util.keystr(path)}")
+    return worst
