@@ -17,15 +17,22 @@ Phases, one line each:
                proposals, 800x1344 canvases, chunk 11) with seeded random
                weights: a gallery of 16 synthetic shop images, then
                retrieve(k=5) for 3 query videos of 10 frames;
+  3b. eval   - both retrieval harnesses (MovingFashion, all 7 strategies:
+               8 products of 1 shop image + 10 frames; MultiDF2: 8 products
+               of 1 shop + 3 street images) at the same width, once per
+               RoIAlign backend: pallas_resident (K2, the control), pallas
+               (K6) and pallas_int8 (K7), with per-strategy top-1, seconds
+               per product and the descriptor drift against the control;
   4. train   - phase-1 Match R-CNN training at full width (bf16
                ResNet-50-FPN with the fused stem frozen, 2000/8000 RPN
                proposals, 512 sampled RoIs per image, batch 8) through
                train_one_epoch_matchrcnn and Phase1Trainer on synthetic
                street/shop batches: two warm-up steps, then 4 timed steps,
                alternating mixed orientations (the two-bucket path) and a
-               single orientation (the fused path).
-For phases 3 and 4 the launch counters are zeroed right before and read
-right after; every kernel of the path must have run.  Then the card's name
+               single orientation (the fused path); then one step with the
+               "pallas" RoIAlign backend (K6 forward, K5 backward).
+For phases 3, 3b and 4 the launch counters are zeroed right before each
+path and read right after; every kernel of the path must have run.  Then the card's name
 and power limit, a JSON line of per-kernel results, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without that
 line.  There is no CPU fallback.
@@ -33,24 +40,31 @@ line.  There is no CPU fallback.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import torch.nn.functional as F
 
-from seam_match_rcnn_tpu_torch.config import RoIHeadsConfig, TrainConfig, serving_model_config
+from seam_match_rcnn_tpu_torch.config import (EvalConfig, RoIHeadsConfig, TrainConfig,
+                                              serving_model_config)
+from seam_match_rcnn_tpu_torch.eval import movingfashion, multidf2
 from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix
+from seam_match_rcnn_tpu_torch.eval.runner import InferenceRunner
 from seam_match_rcnn_tpu_torch.models.layers import FrozenBatchNorm2d
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem, native
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
-from seam_match_rcnn_tpu_torch.ops.roi_align import (multilevel_roi_align,
+from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
+from seam_match_rcnn_tpu_torch.ops.roi_align import (SPATIAL_SCALES, multilevel_roi_align,
                                                       multilevel_roi_align_adjoint)
 from seam_match_rcnn_tpu_torch.serving import SeamRetrieval
 from seam_match_rcnn_tpu_torch.train.engine import train_one_epoch_matchrcnn
@@ -72,13 +86,23 @@ KERNELS = {
     "roi_align_adjoint": ("seam_match_rcnn_tpu_torch/csrc/roi_adjoint.cu",
                           "seam_match_rcnn_tpu/ops/pallas_roi_adjoint.py:254",
                           cuda_roi_align.roi_align_adjoint),
+    "roi_align_patch": ("seam_match_rcnn_tpu_torch/csrc/roi_align_patch.cu",
+                        "seam_match_rcnn_tpu/ops/pallas_roi_align.py:387",
+                        cuda_roi_align.roi_align_patch),
+    "roi_align_patch_int8": ("seam_match_rcnn_tpu_torch/csrc/roi_align_patch.cu",
+                             "seam_match_rcnn_tpu/ops/pallas_roi_align.py:387",
+                             cuda_roi_align.roi_align_patch_int8),
 }
 SERVING_PATH = ("fused_stem", "roi_align", "nlb_aggregate", "pairwise_scores")
 TRAIN_PATH = ("fused_stem", "roi_align", "roi_align_adjoint")
+EVAL_ROI_KERNEL = {"pallas_resident": "roi_align", "pallas": "roi_align_patch",
+                   "pallas_int8": "roi_align_patch_int8"}
+EVAL_PATH = ("fused_stem", "nlb_aggregate", "pairwise_scores")
+TRAIN_PALLAS_PATH = ("fused_stem", "roi_align_patch", "roi_align_adjoint")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PYRAMID = ((200, 336), (100, 168), (50, 84), (25, 42))  # P2..P5 of an 800x1344 canvas
 
 
@@ -138,6 +162,27 @@ def serving_rois(rng, b, n, h=800, w=1344):
     boxes[..., 0::2] = boxes[..., 0::2].clip(0, w)
     boxes[..., 1::2] = boxes[..., 1::2].clip(0, h)
     return torch.from_numpy(boxes.astype(np.float32))
+
+
+def planted_rois(rois):
+    """Put 6 elongated rois at the head of each image's rois: slivers at
+    the top of P2's level band, 47-51 cells long there, which overflow the
+    40x48-cell window of kernels K6 and K7."""
+    planted = [[x, 40.0, x + 62.0, 230.0] for x in (100.0, 400.0, 700.0, 1000.0)]
+    planted += [[40.0, y, 245.0, y + 58.0] for y in (100.0, 500.0)]
+    rois = rois.clone()
+    rois[:, :len(planted)] = torch.tensor(planted)
+    return rois
+
+
+def patch_operations(rois, o):
+    """Multiply-adds of the patch-window RoIAlign on these rois, per
+    channel: the (y tap, x tap) pairs with weight in each output bin."""
+    _, _, _, g = patch.patch_geometry(rois.reshape(-1, 4), PYRAMID, SPATIAL_SCALES, o)
+    wy = patch.interp_matrix(g[:, 0], g[:, 2], g[:, 4], g[:, 5], o, 2, patch.PATCH)
+    wx = patch.interp_matrix(g[:, 1], g[:, 3], g[:, 6], g[:, 7], o, 2, patch.PATCH_W)
+    ny, nx = (wy != 0).sum(dim=(1, 2)).double(), (wx != 0).sum(dim=(1, 2)).double()
+    return float((ny * nx).sum())
 
 
 def nbytes(*ts) -> int:
@@ -241,6 +286,8 @@ def phase_kernels(dev, results):
         bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"], library_ms=None,
         cases=cases)
 
+    phase_kernels_patch(dev, rng, gen, results)
+
     # K3 at S in {1, 64}, T = 10, with a non-zero W_z
     d = lambda i, o: t(rng.randn(i, o) / np.sqrt(i))
     v = lambda o: t(rng.randn(o) * 0.1)
@@ -299,11 +346,63 @@ def phase_kernels(dev, results):
     for name, r in results.items():
         for c in r["cases"]:
             lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
+            quant = (f", plain int8 quantization of the pyramid {c['quantize_ms']:.4f} ms"
+                     if "quantize_ms" in c else "")
             log(f"kernels: {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3g} "
                 f"({c['tol']}) kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-                f"library {lib}, bound {c['bound_ms']:.4f} ms")
+                f"library {lib}, bound {c['bound_ms']:.4f} ms{quant}")
         if not r["ok"]:
             raise SystemExit(f"kernels: {name} disagrees with its plain version")
+
+
+def phase_kernels_patch(dev, rng, gen, results):
+    """K6 (bf16 and f32 features) and K7 (the bf16 pyramid quantized to
+    int8, bf16 out) at K2's serving shapes, 6 window-overflowing rois
+    planted in each image; the plain int8 quantization is timed beside K7."""
+    k6, k7 = [], []
+    for b, n, o, reps in ((11, 4000, 7, 10), (11, 100, 14, 20)):
+        rois = planted_rois(serving_rois(rng, b, n)).to(dev)
+        clamped = int(patch.footprint_clamp_mask(rois, PYRAMID, output_size=o).sum())
+        taps = patch_operations(rois, o) * 256
+        base = [torch.randn((b, 256, h, w), generator=gen, device=dev) for h, w in PYRAMID]
+        for dtype, op_type in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            feats = [f.to(dtype).contiguous(memory_format=torch.channels_last) for f in base]
+            got = cuda_roi_align.roi_align_patch(feats, rois, o)
+            want = patch.roi_align_patch(feats, rois, o)
+            err, tol, ok = (check_bf16 if dtype == torch.bfloat16 else check_f32)(got, want)
+            ms = median_ms(lambda: cuda_roi_align.roi_align_patch(feats, rois, o), reps)
+            pms = median_ms(lambda: patch.roi_align_patch(feats, rois, o), 3)
+            b_ms, b_by = bound(nbytes(*feats, rois, got), 2 * taps, op_type)
+            k6.append(dict(shape=f"{b}x{n} rois {o}x{o} {op_type} ({clamped} clamped)",
+                           max_abs_err=err, tol=tol, ok=ok, ms=ms, plain_ms=pms,
+                           library_ms=None, bound_ms=b_ms, bound_by=b_by))
+            del got, want, feats
+        feats = [f.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                 for f in base]
+        del base
+        q, scales = patch.quantize_features_int8(feats)
+        qms = median_ms(lambda: patch.quantize_features_int8(feats), 5)
+        got = cuda_roi_align.roi_align_patch_int8(q, scales, rois, o, torch.bfloat16)
+        want = patch.roi_align_patch(q, rois, o, scales=scales, out_dtype=torch.bfloat16)
+        # exact integer sums and the same f32 dequantization on both sides
+        err = float((got.float() - want.float()).abs().max())
+        ok = torch.equal(got, want)
+        ms = median_ms(lambda: cuda_roi_align.roi_align_patch_int8(q, scales, rois, o,
+                                                                   torch.bfloat16), reps)
+        pms = median_ms(lambda: patch.roi_align_patch(q, rois, o, scales=scales,
+                                                      out_dtype=torch.bfloat16), 3)
+        b_ms, b_by = bound(nbytes(*q, scales, rois, got), 2 * taps, "int8")
+        k7.append(dict(shape=f"{b}x{n} rois {o}x{o} int8 -> bf16 ({clamped} clamped)",
+                       max_abs_err=err, tol="0 (bit-equal)", ok=ok, ms=ms, plain_ms=pms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by, quantize_ms=qms))
+        del got, want, feats, q
+    for name, cases in (("roi_align_patch", k6), ("roi_align_patch_int8", k7)):
+        results[name] = dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                             ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+                             ok=all(c.pop("ok") for c in cases),
+                             bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
+                             library_ms=None, cases=cases)
+    torch.cuda.empty_cache()
 
 
 def synthetic_image(rng, h, w):
@@ -315,15 +414,23 @@ def synthetic_image(rng, h, w):
     return img.clip(0, 1)
 
 
-def phase_slice(dev):
-    cfg = serving_model_config()
-    t0 = time.perf_counter()
+def serving_model(dev, roi_align_backend="pallas_resident"):
+    """The full-width serving model with seeded random weights and a
+    non-zero W_z, so that the NLB is not an identity."""
+    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend=roi_align_backend))
     model = init_model(cfg, video=True, seed=0, device=dev)
     gen = torch.Generator().manual_seed(1)
     nlb = model.roi_heads["temporal_aggregator"].newnlb
-    with torch.no_grad():  # non-zero W_z, so the NLB is not an identity
+    with torch.no_grad():
         nlb.W.weight.copy_(torch.randn(nlb.W.weight.shape, generator=gen) * 0.05)
         nlb.W.bias.copy_(torch.randn(nlb.W.bias.shape, generator=gen) * 0.05)
+    return model
+
+
+def phase_slice(dev):
+    t0 = time.perf_counter()
+    model = serving_model(dev)
+    cfg = model.cfg
     retr = SeamRetrieval(model, chunk=11)
     log(f"slice: model on {dev} in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters())} parameters)")
@@ -402,6 +509,121 @@ def phase_slice(dev):
     return launches, latencies, gallery_s, peak_gb
 
 
+def garment_image(rng, h, w, color):
+    """A garment of the given colour (a rectangle) on noise: the HWC float
+    image and the garment's xyxy box."""
+    img = rng.uniform(0.0, 0.25, (h, w, 3)).astype(np.float32)
+    bh, bw = int(h * rng.uniform(0.3, 0.6)), int(w * rng.uniform(0.2, 0.5))
+    y, x = rng.randint(0, h - bh), rng.randint(0, w - bw)
+    img[y:y + bh, x:x + bw] = np.clip(color + rng.uniform(-0.05, 0.05, (bh, bw, 3)), 0, 1)
+    return img, np.asarray([x, y, x + bw, y + bh], np.float32)
+
+
+def eval_sets(rng, n=8):
+    """In-memory MovingFashion products (1 shop image + 10 frames of a
+    720x1280 video, the garment's box per frame as the GT tracklet) and
+    MultiDF2 products (1 shop + 3 street images with each image's GT box)."""
+    shop_sizes = [(600, 800), (800, 600), (1024, 768), (640, 480)]
+    mf, mdf2 = [], []
+    for p in range(n):
+        color = rng.uniform(0.3, 1.0, 3)
+        shop, _ = garment_image(rng, *shop_sizes[p % 4], color)
+        frames = [garment_image(rng, 720, 1280, color) for _ in range(10)]
+        mf.append({"images": [shop] + [im for im, _ in frames],
+                   "tracklet_gt": np.stack([box for _, box in frames]),
+                   "source": 1 if p % 2 else 0, "key": f"product{p}"})
+        shots = [garment_image(rng, *shop_sizes[(p + 1) % 4], color)] + [
+            garment_image(rng, *hw, color) for hw in ((720, 1280), (1280, 720), (720, 1280))]
+        mdf2.append({"images": [im for im, _ in shots],
+                     "targets": [{"boxes": box[None], "styles": np.asarray([1]),
+                                  "pair_ids": np.asarray([p])} for _, box in shots],
+                     "key": f"1_{p}"})
+    return mf, mdf2
+
+
+def descriptor_drift(control, other):
+    """The backend-drift probe of tools/validate_int8.py on the same images:
+    |difference| of the match and aggregator descriptors of the detections
+    both backends make (valid boxes paired at IoU >= 0.9)."""
+    xywh = lambda b: np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]], 1)  # noqa: E731
+    diffs, total = [], 0
+    for a, b in zip(control, other):
+        ia, ib = np.nonzero(a["valid"])[0], np.nonzero(b["valid"])[0]
+        total += len(ia)
+        if not len(ia) or not len(ib):
+            continue
+        iou = multidf2.box_iou_xywh(xywh(a["boxes"][ia]), xywh(b["boxes"][ib]))
+        j = iou.argmax(1)
+        keep = iou[np.arange(len(ia)), j] >= 0.9
+        for k in ("match_features", "aggr_features"):
+            diffs.append((k, np.abs(a[k][ia[keep]] - b[k][ib[j[keep]]])))
+    out = {"paired": int(sum(len(d) for k, d in diffs if k == "match_features")),
+           "detections": total}
+    for k in ("match_features", "aggr_features"):
+        d = np.concatenate([x for kk, x in diffs if kk == k] or [np.zeros((0, 256))])
+        out[k] = {"max_abs": float(d.max()) if d.size else 0.0,
+                  "mean_abs": float(d.mean()) if d.size else 0.0}
+    return out
+
+
+def phase_eval(dev, backends=("pallas_resident", "pallas", "pallas_int8")):
+    mf, mdf2 = eval_sets(np.random.RandomState(3))
+    probe = [p["images"][0] for p in mf] + [p["images"][5] for p in mf]
+    out_root = Path("build") / "chip_smoke_eval"
+    shutil.rmtree(out_root, ignore_errors=True)
+    mf_cfg = EvalConfig(ingest="device")
+    mdf2_cfg = EvalConfig(score_threshold=0.0, tracking_threshold=0.7, ingest="device")
+    launches, report, probes = {}, {}, {}
+    for backend in backends:
+        model = serving_model(dev, backend)
+        runner = InferenceRunner(model, chunk=mf_cfg.infer_chunk)
+        probes[backend] = runner(probe)  # also the warm-up of both canvases
+        torch.cuda.synchronize()
+        for _, _, fn in KERNELS.values():
+            fn.launches = 0
+        seconds, top1 = {}, {}
+        for name, harness, products, cfg in (("movingfashion", movingfashion, mf, mf_cfg),
+                                             ("multidf2", multidf2, mdf2, mdf2_cfg)):
+            out_dir = out_root / backend / name
+            out_dir.mkdir(parents=True)
+            t0 = time.perf_counter()
+            with open(out_dir / "log.txt", "w") as f, contextlib.redirect_stdout(f):
+                harness.evaluate(model, products, cfg, runner=runner, out_dir=str(out_dir))
+            torch.cuda.synchronize()
+            seconds[name] = (time.perf_counter() - t0) / len(products)
+            metrics = json.loads((out_dir / "metrics.json").read_text())["all"]
+            top1[name] = {s: m["1"] for s, m in metrics.items()}
+            ks = [[m[k] for k in sorted(m, key=int)] for m in metrics.values()]
+            if len(metrics) != 7 or not all(
+                    0 <= a <= b <= 1 for row in ks for a, b in zip(row, row[1:])):
+                raise SystemExit(f"eval: {backend} {name}: metrics are not 7 strategies of "
+                                 f"rising top-k rates in [0, 1]: {metrics}")
+        launches[backend] = {n: fn.launches for n, (_, _, fn) in KERNELS.items()}
+        missing = [n for n in EVAL_PATH + (EVAL_ROI_KERNEL[backend],)
+                   if launches[backend][n] == 0]
+        if missing:
+            raise SystemExit(f"eval: the {backend} path never launched {missing}")
+        report[backend] = {"top1": top1, "s_per_product": seconds}
+        log(f"eval: {backend}: seconds per product: movingfashion "
+            f"{seconds['movingfashion']:.3f}, multidf2 {seconds['multidf2']:.3f}; "
+            f"launches {launches[backend]}")
+        for name in top1:
+            log(f"eval: {backend} {name} top-1 (random weights: no accuracy meaning): "
+                + ", ".join(f"{s}={v:.4f}" for s, v in top1[name].items()))
+        del model, runner
+        torch.cuda.empty_cache()
+    for backend in backends[1:]:
+        drift = descriptor_drift(probes[backends[0]], probes[backend])
+        report[backend]["drift_vs_control"] = drift
+        log(f"eval: descriptor drift {backend} vs {backends[0]} on {len(probe)} images "
+            f"({drift['paired']} of {drift['detections']} detections paired): match max "
+            f"{drift['match_features']['max_abs']:.4g} mean "
+            f"{drift['match_features']['mean_abs']:.4g}, aggregator max "
+            f"{drift['aggr_features']['max_abs']:.4g} mean "
+            f"{drift['aggr_features']['mean_abs']:.4g}")
+    return launches, report
+
+
 def garment_crop(rng, s=56):
     """A filled ellipse mask crop [s, s] uint8, as a garment's mask in its box."""
     yy, xx = np.mgrid[:s, :s] / (s - 1) * 2 - 1
@@ -456,15 +678,22 @@ class TimedTrainer:
         return out
 
 
-def phase_train(dev):
+def train_model(dev, roi_align_backend):
+    """The full-width phase-1 model (seeded random weights, the stem and
+    layer1 frozen) and its timed trainer with the phase-1 optimizer."""
     tc = TrainConfig()
-    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend="pallas_resident"),
+    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend=roi_align_backend),
                                freeze_backbone_stages=True)
     model = init_model(cfg, video=False, seed=0, device=dev)
     schedule = multistep_warmup_schedule(tc.lr, tc.milestones, tc.gamma, 1000,
                                          tc.warmup_iters, tc.warmup_factor)
-    timed = TimedTrainer(Phase1Trainer(model, sgd(model, schedule, tc.momentum,
-                                                  tc.weight_decay, tc.clip_grad_norm)))
+    return model, TimedTrainer(Phase1Trainer(model, sgd(model, schedule, tc.momentum,
+                                                        tc.weight_decay, tc.clip_grad_norm)))
+
+
+def phase_train(dev):
+    tc = TrainConfig()
+    model, timed = train_model(dev, "pallas_resident")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.RandomState(2)
     mixed = [(600, 800), (720, 1280), (480, 640), (800, 600), (768, 1024),  # 4 street
@@ -523,6 +752,39 @@ def phase_train(dev):
     return launches, step_ms, buckets, peak_gb, timed.losses[n_warm:]
 
 
+def phase_train_pallas(dev):
+    """One full-width phase-1 step (single orientation, batch 8) with the
+    "pallas" RoIAlign backend: K6 forward, K5 backward."""
+    model, timed = train_model(dev, "pallas")
+    sizes = [(600, 800), (720, 1280), (480, 640), (768, 1024), (540, 960), (500, 900),
+             (640, 960), (450, 800)]
+    data = [train_batch(np.random.RandomState(5), sizes) + ([0],)]
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    for _, _, fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_one_epoch_matchrcnn(model, timed, data, epoch=0,
+                              generator=torch.Generator(device=dev).manual_seed(0),
+                              print_freq=100)
+    launches = {name: fn.launches for name, (_, _, fn) in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses = timed.losses[0]
+    log(f"train (pallas): one full-width phase-1 step (batch 8, one bucket, the first with "
+        f"its shapes) in {timed.times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GiB; "
+        f"launches {launches}; " + ", ".join(f"{k}={v:.4f}" for k, v in losses.items()))
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise SystemExit("train (pallas): a loss is not finite")
+    params = dict(model.named_parameters())
+    still = [n for n, v in trainable.items() if torch.equal(v, params[n])]
+    if still:
+        raise SystemExit(f"train (pallas): trainable parameters did not move: {still[:5]}")
+    missing = [name for name in TRAIN_PALLAS_PATH if launches[name] == 0]
+    if missing:
+        raise SystemExit(f"train (pallas): the training path never launched {missing}")
+    log(f"train (pallas): every loss finite; all {len(trainable)} trainable tensors moved")
+    return launches, timed.times[0] * 1e3, peak_gb, losses
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -539,9 +801,15 @@ def main() -> int:
 
     results = {}
     phase_kernels(dev, results)
-    serve_launches, latencies, gallery_s, serve_peak_gb = phase_slice(dev)
+    paths = {}
+    paths["serving"], latencies, gallery_s, serve_peak_gb = phase_slice(dev)
     torch.cuda.empty_cache()
-    train_launches, step_ms, step_buckets, train_peak_gb, train_losses = phase_train(dev)
+    eval_launches, eval_report = phase_eval(dev)
+    paths.update({f"eval_{b}": v for b, v in eval_launches.items()})
+    paths["train"], step_ms, step_buckets, train_peak_gb, train_losses = phase_train(dev)
+    torch.cuda.empty_cache()
+    paths["train_pallas"], pallas_step_ms, pallas_peak_gb, pallas_losses = phase_train_pallas(
+        dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -550,13 +818,15 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serve_launches[name] + train_launches[name],
-         "launches_by_path": {"serving": serve_launches[name], "train": train_launches[name]},
+         "launches": sum(counts[name] for counts in paths.values()),
+         "launches_by_path": {path: counts[name] for path, counts in paths.items()},
          **{k: results[name][k] for k in keys}}
         for name, (src, rep, _) in KERNELS.items()],
         "retrieve_ms": [x * 1e3 for x in latencies], "gallery_ms": gallery_s * 1e3,
-        "serving_peak_gib": serve_peak_gb, "train_step_ms": step_ms, "train_step_buckets": step_buckets,
-        "train_peak_gib": train_peak_gb, "train_losses": train_losses}))
+        "serving_peak_gib": serve_peak_gb, "eval": eval_report, "train_step_ms": step_ms,
+        "train_step_buckets": step_buckets, "train_peak_gib": train_peak_gb,
+        "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
+        "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

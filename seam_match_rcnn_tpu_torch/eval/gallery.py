@@ -1,11 +1,13 @@
-"""Gallery scoring for retrieval, on the device.
+"""Gallery scoring for retrieval.
 
-Port of ``seam_match_rcnn_tpu/eval/gallery.py``'s f32 ``score_matrix``: the
-[Q, G] match-probability matrix of street queries against shop gallery
-descriptors, chunked over queries.  On a CUDA device every chunk is one
-launch of kernel K4 (``ops/cuda_kernels.pairwise_scores``); there is no
-size gate.  Eager PyTorch has no compile cache to feed, so the JAX
-package's power-of-two shape buckets are not needed.
+Port of ``seam_match_rcnn_tpu/eval/gallery.py``: ``score_matrix``, the [Q, G]
+match-probability matrix of street queries against shop gallery
+descriptors, in f32 on the device (chunked over queries; on a CUDA device
+every chunk is one launch of kernel K4, ``ops/cuda_kernels.pairwise_scores``,
+with no size gate; eager PyTorch has no compile cache to feed, so the JAX
+package's power-of-two shape buckets are not needed), or with
+``dtype="fp16"`` the reference's numpy fp16 chain (``score_matrix_fp16``)
+on the host; and ``rank_of``.
 """
 
 from __future__ import annotations
@@ -16,11 +18,43 @@ import torch
 from ..ops.cuda_kernels import pairwise_scores
 
 
-def score_matrix(street, shop, w, b, device=None, chunk: int = 4096) -> np.ndarray:
+def score_matrix_fp16(street: np.ndarray, shop: np.ndarray, w: np.ndarray, b: np.ndarray,
+                      chunk: int = 512) -> np.ndarray:
+    """The reference's numpy fp16 scoring chain, bit for bit: fp16
+    descriptors, fp16 squared differences, fp16 matmul + bias, fp16 softmax
+    -> [Q, G] f32.  Host numpy on purpose (the reference's rounding is
+    numpy's); chunked over queries to bound the [chunk, G, 256] term."""
+    street16 = np.asarray(street).astype(np.float16)
+    shop16 = np.asarray(shop).astype(np.float16)
+    wt = np.asarray(w).transpose().astype(np.float16)
+    b16 = np.asarray(b).astype(np.float16)
+    outs = []
+    for i in range(0, max(len(street16), 1), chunk):
+        part = street16[i: i + chunk]
+        if len(part) == 0:
+            break
+        sq = (shop16[np.newaxis] - part[:, np.newaxis]) ** 2
+        raw = sq @ wt + b16
+        cls = np.exp(raw) / np.exp(raw).sum(2)[:, :, np.newaxis]
+        outs.append(cls[:, :, 1])
+    if not outs:
+        return np.zeros((0, len(shop16)), np.float32)
+    return np.concatenate(outs, 0).astype(np.float32)
+
+
+def score_matrix(street, shop, w, b, device=None, chunk: int = 4096,
+                 dtype: str = "f32") -> np.ndarray:
     """softmax((street - shop)^2 W^T + b)[..., 1] for all pairs -> [Q, G]
     f32 numpy.  ``street`` [Q, C], ``shop`` [G, C], ``w`` [2, C], ``b`` [2]
-    (numpy arrays or tensors) are scored on ``device``: by default the
-    device of the first tensor among them, else the CUDA device."""
+    (numpy arrays or tensors).  ``dtype="f32"`` scores on ``device``: by
+    default the device of the first tensor among them, else the CUDA device;
+    ``dtype="fp16"`` takes ``score_matrix_fp16`` on the host."""
+    if dtype == "fp16":
+        host = [a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+                for a in (street, shop, w, b)]
+        return score_matrix_fp16(*host)
+    if dtype != "f32":
+        raise ValueError(f"unknown gallery dtype {dtype!r}: 'f32' or 'fp16'")
     if device is None:
         device = next((a.device for a in (street, shop, w, b) if isinstance(a, torch.Tensor)),
                       torch.device("cuda"))
@@ -31,3 +65,11 @@ def score_matrix(street, shop, w, b, device=None, chunk: int = 4096) -> np.ndarr
         return np.zeros((0, g), np.float32)
     outs = [pairwise_scores(street[i:i + chunk], shop, w, b) for i in range(0, q, chunk)]
     return torch.cat(outs).cpu().numpy()
+
+
+def rank_of(scores: np.ndarray, target: int) -> np.ndarray:
+    """For each query row, the rank (0-based) of ``target`` when gallery
+    entries are sorted by descending score (argsort + nonzero, as the
+    reference)."""
+    order = np.argsort(scores, axis=-1)[:, ::-1]
+    return np.nonzero(order == target)[1]

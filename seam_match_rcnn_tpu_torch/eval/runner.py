@@ -1,9 +1,10 @@
 """Batched inference runner: host-side bucketing around the model forward.
 
-Port of ``seam_match_rcnn_tpu/eval/runner.py``: images are resized on the
-device into the two orientation canvases, split into chunks, run through
-``MatchRCNN.inference`` (plus the aggregator's descriptors), and returned
-per image with boxes mapped back to original coordinates (torchvision
+Port of ``seam_match_rcnn_tpu/eval/runner.py`` with its device ingest:
+images are grouped by source geometry, resized on the device into their
+orientation canvas, split into chunks, run through ``MatchRCNN.inference``
+(plus the aggregator's descriptors), and returned per image with boxes
+mapped back to original coordinates (torchvision
 ``GeneralizedRCNNTransform.postprocess``).
 """
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from ..models.matchrcnn import MatchRCNN
-from ..models.transform import batch_images, resize_boxes_back
+from ..models.transform import device_batch_images, resize_boxes_back
 
 
 def _chunk_plan(n: int, chunk: int):
@@ -37,7 +38,16 @@ def _chunk_plan(n: int, chunk: int):
 
 
 class InferenceRunner:
-    def __init__(self, model: MatchRCNN, chunk: int = 8):
+    def __init__(self, model: MatchRCNN, chunk: int = 8, ingest: str = "device"):
+        """Runs on the model's device.  ``ingest``: "device" (raw upload,
+        resize on the device); the JAX package's "host" ingest (a cv2 resize
+        before the upload) waits for the port's data layer (ROADMAP M10.1)."""
+        if ingest == "host":
+            raise NotImplementedError(
+                "ingest='host' (the cv2 resize of the JAX package) is not ported: it waits "
+                "for the data layer (ROADMAP M10.1); use ingest='device'")
+        if ingest != "device":
+            raise ValueError(f"unknown ingest {ingest!r}: 'host' or 'device'")
         self.model = model
         self.chunk = chunk
         self.device = next(model.parameters()).device
@@ -48,7 +58,7 @@ class InferenceRunner:
         coordinates, scores, labels, valid [D], match_features and
         aggr_features [D, 256]."""
         results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
-        for bucket in batch_images(images, self.model.cfg.transform, self.device):
+        for bucket in device_batch_images(images, self.model.cfg.transform, self.device):
             n = bucket.pixels.shape[0]
             for s, size in _chunk_plan(n, self.chunk):
                 e = s + size

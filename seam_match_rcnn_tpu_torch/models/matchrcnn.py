@@ -11,9 +11,14 @@ names follow the reference's torchvision state dict (``backbone.body.*``,
 ``rpn.head.*``, ``roi_heads.box_head.*``, ``roi_heads.match_predictor.*``,
 ...).
 
-The TPU plumbing of the JAX model is gone: the tile-sorted box path and its
-unpermute (kernel K2 returns rois in natural order), the int8 pyramid and
-the exact fixup.  Public outputs keep the JAX shapes and padding.  Random
+RoIAlign backends (``RoIHeadsConfig.roi_align_backend``): "xla" (the plain
+exact version), "pallas_resident" (kernel K2, exact), "pallas" (kernel K6,
+the TPU kernel's 40x48-cell window) and "pallas_int8" (kernel K7 over an
+int8 pyramid quantized once per forward); every one but "pallas_int8" is
+trainable (the kernels' backward is K5), and the window backends take the
+exact fixup when ``roi_align_fixup_budget`` > 0.  The tile-sorted box path
+of the JAX model and its unpermute are gone (every kernel returns rois in
+natural order).  Public outputs keep the JAX shapes and padding.  Random
 draws of the samplers come from a ``torch.Generator`` or are handed in
 (``draws``), since ``jax.random`` and torch give different numbers.
 """
@@ -29,8 +34,9 @@ from ..config import ModelConfig
 from ..losses import detection as det_losses
 from ..losses.match import match_loss_supervised
 from ..ops.boxes import box_iou, encode_boxes
-from ..ops.cuda_roi_align import roi_align
+from ..ops.cuda_roi_align import roi_align, roi_align_patch, roi_align_patch_int8
 from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align_patch import apply_exact_fixup, quantize_features_int8
 from ..ops.targets import assign_and_sample
 from .anchors import grid_anchors
 from .detection import postprocess_detections
@@ -80,11 +86,10 @@ class MatchRCNN(nn.Module):
     def __init__(self, cfg: ModelConfig, video: bool = False):
         super().__init__()
         rh = cfg.roi_heads
-        if rh.roi_align_backend in ("pallas", "pallas_int8"):
-            raise NotImplementedError(
-                f"roi_align_backend {rh.roi_align_backend!r} is not ported yet (ROADMAP M13)")
-        if rh.roi_align_backend not in ("xla", "pallas_resident"):
-            raise ValueError(f"unknown roi_align_backend {rh.roi_align_backend!r}")
+        if rh.roi_align_backend not in ("xla", "pallas", "pallas_int8", "pallas_resident"):
+            raise ValueError(
+                f"unknown roi_align_backend {rh.roi_align_backend!r}; expected 'xla', "
+                "'pallas', 'pallas_int8' or 'pallas_resident'")
         # f32 paths (match/aggregator trunks, NLB, pairwise scorer) must not
         # run in TF32, cuDNN's default for convolutions
         torch.backends.cudnn.allow_tf32 = False
@@ -136,26 +141,49 @@ class MatchRCNN(nn.Module):
 
     def roi_levels(self, feats: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
         """P2..P5 as the RoIAlign backend takes them: channels_last copies for
-        kernel K2 (made once per forward, shared by every RoIAlign call)."""
-        if self.cfg.roi_heads.roi_align_backend == "pallas_resident":
-            return [f.contiguous(memory_format=torch.channels_last) for f in feats[:4]]
-        return feats[:4]
+        the kernels K2 and K6 and for the exact fixup (made once per forward,
+        shared by every RoIAlign call)."""
+        if self.cfg.roi_heads.roi_align_backend == "xla":
+            return feats[:4]
+        return [f.contiguous(memory_format=torch.channels_last) for f in feats[:4]]
+
+    def _quantize_pyramid(self, levels: Sequence[torch.Tensor]):
+        """The int8 pyramid and its scales [4, C] for the "pallas_int8"
+        backend (else None), made once per forward and shared by the box and
+        match RoIAlign calls: the scales span the whole canvas batch, as in
+        the JAX forward."""
+        if self.cfg.roi_heads.roi_align_backend != "pallas_int8":
+            return None
+        return quantize_features_int8(levels[:4])
 
     def _roi_align(self, levels: Sequence[torch.Tensor], rois: torch.Tensor,
-                   output_size: int) -> torch.Tensor:
-        """levels from ``roi_levels`` (P2..P5; a P6 after them is ignored);
-        [B, R, 4] rois -> [B*R, C, out, out] in the features' dtype.
-        Differentiable in the features (K5 backward)."""
+                   output_size: int, prequant=None) -> torch.Tensor:
+        """levels from ``roi_levels`` (P2..P5; a P6 after them is ignored),
+        ``prequant`` from ``_quantize_pyramid`` (made here when None); [B, R,
+        4] rois -> [B*R, C, out, out] in the features' dtype.  Differentiable
+        in the features (K5 backward), but for "pallas_int8"."""
         rh = self.cfg.roi_heads
-        if rh.roi_align_backend == "pallas_resident":
-            return roi_align(levels[:4], rois.contiguous(), output_size, rh.sampling_ratio)
-        return multilevel_roi_align(levels[:4], rois, output_size, rh.sampling_ratio)
+        backend, ratio = rh.roi_align_backend, rh.sampling_ratio
+        if backend == "xla":
+            return multilevel_roi_align(levels[:4], rois, output_size, ratio)
+        rois = rois.contiguous()
+        if backend == "pallas_resident":  # exact: the fixup would change nothing
+            return roi_align(levels[:4], rois, output_size, ratio)
+        if backend == "pallas":
+            out = roi_align_patch(levels[:4], rois, output_size, ratio)
+        else:
+            q, scales = prequant if prequant is not None else self._quantize_pyramid(levels)
+            out = roi_align_patch_int8(q, scales, rois, output_size, levels[0].dtype, ratio)
+        if rh.roi_align_fixup_budget > 0:
+            out = apply_exact_fixup(levels[:4], rois, out, output_size, ratio,
+                                    rh.roi_align_fixup_budget)
+        return out
 
-    def box_branch(self, levels, rois: torch.Tensor):
+    def box_branch(self, levels, rois: torch.Tensor, prequant=None):
         """-> class_logits [B, R, C] f32, deltas [B, R, 4C] f32."""
         b, r = rois.shape[:2]
         x = self.roi_heads["box_head"](
-            self._roi_align(levels, rois, self.cfg.roi_heads.box_roi_output))
+            self._roi_align(levels, rois, self.cfg.roi_heads.box_roi_output, prequant))
         logits, deltas = self.roi_heads["box_predictor"](x)
         return (logits.reshape(b, r, -1).to(torch.float32),
                 deltas.reshape(b, r, -1).to(torch.float32))
@@ -196,8 +224,9 @@ class MatchRCNN(nn.Module):
         image_sizes = image_sizes.to(images.device)
         feats = self.features(images)
         levels = self.roi_levels(feats)
+        pq = self._quantize_pyramid(levels)
         props, _, pvalid = self.proposals(feats, image_sizes)
-        logits, deltas = self.box_branch(levels, props)
+        logits, deltas = self.box_branch(levels, props, pq)
         det = postprocess_detections(logits, deltas, props, pvalid, image_sizes,
                                      self.cfg.roi_heads,
                                      fallback_score=0.1 if self.video else 1.0)
@@ -205,7 +234,7 @@ class MatchRCNN(nn.Module):
                "valid": det.valid}
         b, d = det.boxes.shape[:2]
         o = self.cfg.roi_heads.mask_roi_output
-        roi14 = self._roi_align(levels, det.boxes, o).to(torch.float32)
+        roi14 = self._roi_align(levels, det.boxes, o, pq).to(torch.float32)
         if with_roi_features:
             out["roi_features"] = roi14.reshape(b, d, -1, o, o)
         if with_match:
@@ -236,6 +265,7 @@ class MatchRCNN(nn.Module):
         image_sizes = image_sizes.to(dev)
         feats = self.features(images)
         levels = self.roi_levels(feats)
+        pq = self._quantize_pyramid(levels)
         obj, regs = self.rpn["head"](feats)
         logits, deltas = flatten_rpn_outputs(obj, regs)
         logits = [x.to(torch.float32) for x in logits]
@@ -270,7 +300,7 @@ class MatchRCNN(nn.Module):
         s_labels, s_matched, s_valid = take(labels, s_idx), take(matched, s_idx), sample.valid
 
         # --- box branch (K2 at 7x7) -----------------------------------------
-        class_logits, box_deltas = self.box_branch(levels, s_props)
+        class_logits, box_deltas = self.box_branch(levels, s_props, pq)
         reg_targets = encode_boxes(take(gt_boxes, s_matched[..., None]), s_props,
                                    rh.bbox_reg_weights)
         flat = lambda x: x.reshape((-1,) + x.shape[2:])  # noqa: E731
@@ -282,7 +312,7 @@ class MatchRCNN(nn.Module):
         m = min(num_mask_slots, s_props.shape[1])
         m_props, m_valid = s_props[:, :m], sample.is_pos[:, :m]
         m_matched, m_labels = s_matched[:, :m], s_labels[:, :m]
-        roi14 = self._roi_align(levels, m_props, rh.mask_roi_output)
+        roi14 = self._roi_align(levels, m_props, rh.mask_roi_output, pq)
         mask_logits = self.mask_branch(roi14)
         mask_t = det_losses.mask_targets_from_crops(gt["mask_crops"].to(torch.float32),
                                                     gt_boxes, m_props, m_matched)

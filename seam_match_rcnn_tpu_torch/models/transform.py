@@ -81,6 +81,29 @@ def batch_images(images: Sequence[np.ndarray], cfg: TransformConfig,
     return out
 
 
+def device_batch_images(images: Sequence[np.ndarray], cfg: TransformConfig,
+                        device: torch.device) -> List[ImageBatch]:
+    """The inference runner's batching, as the JAX package's
+    ``device_batch_images``: one batch per identical source geometry (h, w),
+    in order of first appearance, uploaded raw and resized on the device in
+    one call.  Which images share a forward matters where a backend's
+    numbers span the batch (the int8 pyramid's scales)."""
+    groups = {}
+    for i, img in enumerate(images):
+        groups.setdefault(tuple(img.shape[:2]), []).append(i)
+    out = []
+    for (h, w), idxs in groups.items():
+        raw = torch.as_tensor(np.stack([np.asarray(images[i]) for i in idxs])).to(device)
+        scale = resize_scale(h, w, cfg)
+        nh, nw = int(h * scale), int(w * scale)
+        out.append(ImageBatch(pixels=device_ingest(raw, cfg),
+                              sizes=np.tile(np.asarray([[nh, nw]], np.int32), (len(idxs), 1)),
+                              orig_sizes=np.tile(np.asarray([[h, w]], np.int32),
+                                                 (len(idxs), 1)),
+                              indices=idxs))
+    return out
+
+
 def normalize(pixels: torch.Tensor, cfg: TransformConfig) -> torch.Tensor:
     """ImageNet normalization of [B, 3, H, W] pixels."""
     mean = torch.tensor(cfg.image_mean, dtype=pixels.dtype, device=pixels.device)

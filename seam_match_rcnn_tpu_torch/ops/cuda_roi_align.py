@@ -1,5 +1,7 @@
 """Kernels K2 and K5: multilevel RoIAlign forward (``csrc/roi_align.cu``)
-and its adjoint (``csrc/roi_adjoint.cu``), paired in ``RoIAlignFunction``.
+and its adjoint (``csrc/roi_adjoint.cu``), paired in ``RoIAlignFunction``;
+kernels K6 and K7: the patch-window RoIAlign over bf16/f32 and int8
+features (``csrc/roi_align_patch.cu``).
 
 K2 replaces ``seam_match_rcnn_tpu/ops/pallas_roi_align_resident.py``
 (``pallas_roi_align_resident``).  It computes the exact semantics of the
@@ -9,8 +11,15 @@ no window clamp, no tile sort, no ``order`` output.  K5 replaces
 (``multilevel_roi_align_adjoint_pallas``) and computes the exact adjoint of
 K2, ``ops/roi_align.multilevel_roi_align_adjoint``.  The source notes in the
 ``.cu`` files say what bounds each kernel.  ``RoIAlignFunction`` is the
-counterpart of ``pallas_roi_align_resident_trainable``: forward K2, backward
-K5, no gradient for the rois (the reference detaches its proposals).
+counterpart of ``pallas_roi_align_resident_trainable`` (forward K2) and of
+``pallas_roi_align_trainable`` (forward K6): backward K5, the exact
+adjoint, no gradient for the rois (the reference detaches its proposals).
+
+K6 and K7 replace ``seam_match_rcnn_tpu/ops/pallas_roi_align.py``
+(``pallas_roi_align_batched`` over bf16/f32 features, and over the int8
+pyramid of ``quantize_features_int8`` with its scales).  They compute the
+plain version ``ops/roi_align_patch.roi_align_patch``: the TPU kernel's
+40x48-cell window clamp included, rois in natural order.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import native
+from . import roi_align_patch as patch
 from .roi_align import SPATIAL_SCALES, multilevel_roi_align, multilevel_roi_align_adjoint
 
 
@@ -32,21 +42,18 @@ def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size:
     bf16 and f32 rois.  When a level requires a gradient, the call goes
     through ``RoIAlignFunction``, whose backward is K5."""
     if torch.is_grad_enabled() and any(f.requires_grad for f in features):
-        return RoIAlignFunction.apply(rois, output_size, sampling_ratio, tuple(spatial_scales),
-                                      *features)
+        return RoIAlignFunction.apply(_forward, rois, output_size, sampling_ratio,
+                                      tuple(spatial_scales), *features)
     return _forward(features, rois, output_size, sampling_ratio, spatial_scales)
 
 
-def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
-    if rois.device.type == "cpu":
-        return multilevel_roi_align(features, rois, output_size, sampling_ratio,
-                                    spatial_scales)
-    name = "roi_align"
+def _check_levels(name, features, rois, spatial_scales, dtypes):
+    """The input checks of the forward kernels (K2, K6, K7) -> (B, R, C)."""
     req = native.require
     req(rois.device.type == "cuda", name, f"rois on {rois.device}, not cuda")
     req(len(features) == 4 and len(spatial_scales) == 4, name, "needs the 4 levels P2..P5")
     dtype = features[0].dtype
-    req(dtype in (torch.float32, torch.bfloat16), name, f"features dtype {dtype}")
+    req(dtype in dtypes, name, f"features dtype {dtype}")
     req(rois.dtype == torch.float32 and rois.dim() == 3 and rois.shape[-1] == 4
         and rois.is_contiguous(), name, "rois must be contiguous f32 [B, R, 4]")
     b, r = rois.shape[:2]
@@ -57,6 +64,16 @@ def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
             "every level must be [B, C, H, W] on the rois' device in one dtype")
         req(f.is_contiguous(memory_format=torch.channels_last), name,
             "features must be channels_last")
+    return b, r, c
+
+
+def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
+    if rois.device.type == "cpu":
+        return multilevel_roi_align(features, rois, output_size, sampling_ratio,
+                                    spatial_scales)
+    name = "roi_align"
+    dtype = features[0].dtype
+    b, r, c = _check_levels(name, features, rois, spatial_scales, (torch.float32, torch.bfloat16))
     n = b * r
     out = torch.empty((n, output_size, output_size, c), dtype=dtype, device=rois.device)
     if n:
@@ -73,6 +90,88 @@ def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
 
 
 roi_align.launches = 0
+
+
+def roi_align_patch(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
+                    sampling_ratio: int = 2,
+                    spatial_scales: Tuple[float, ...] = SPATIAL_SCALES) -> torch.Tensor:
+    """K6, the patch-window RoIAlign.  features: P2..P5 as [B, C, H_l, W_l];
+    rois [B, R, 4] -> [B*R, C, out, out] in the features' dtype.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    needs channels_last features in f32 or bf16 and f32 rois.  When a level
+    requires a gradient, the call goes through ``RoIAlignFunction``, whose
+    backward is K5 (the exact adjoint, as the JAX package's trainable
+    wrapper pairs this forward with it)."""
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return RoIAlignFunction.apply(_patch_forward, rois, output_size, sampling_ratio,
+                                      tuple(spatial_scales), *features)
+    return _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales)
+
+
+roi_align_patch.launches = 0
+
+
+def roi_align_patch_int8(features: Sequence[torch.Tensor], scales: torch.Tensor,
+                         rois: torch.Tensor, output_size: int, out_dtype: torch.dtype,
+                         sampling_ratio: int = 2,
+                         spatial_scales: Tuple[float, ...] = SPATIAL_SCALES) -> torch.Tensor:
+    """K7, the patch-window RoIAlign over an int8 pyramid: features P2..P5
+    [B, C, H_l, W_l] int8 and scales [4, C] f32 from
+    ``roi_align_patch.quantize_features_int8``; rois [B, R, 4] -> [B*R, C,
+    out, out] in ``out_dtype`` (f32 or bf16).  No gradient."""
+    return _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales,
+                          scales, out_dtype)
+
+
+roi_align_patch_int8.launches = 0
+
+
+def _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales, scales=None,
+                   out_dtype=None):
+    if rois.device.type == "cpu":
+        return patch.roi_align_patch(features, rois, output_size, sampling_ratio,
+                                     spatial_scales, scales=scales, out_dtype=out_dtype)
+    wrapper = roi_align_patch if scales is None else roi_align_patch_int8
+    name = wrapper.__name__
+    req = native.require
+    dtype = features[0].dtype
+    b, r, c = _check_levels(name, features, rois, spatial_scales,
+                            (torch.float32, torch.bfloat16) if scales is None else (torch.int8,))
+    req(1 <= output_size <= 16 and 1 <= sampling_ratio <= 4, name,
+        "output_size must be in [1, 16] and sampling_ratio in [1, 4]")
+    if scales is None:
+        out_dtype = dtype
+    else:
+        req(out_dtype in (torch.float32, torch.bfloat16), name, f"out_dtype {out_dtype}")
+        req(scales.device == rois.device and scales.dtype == torch.float32
+            and tuple(scales.shape) == (4, c) and scales.is_contiguous(), name,
+            "scales must be contiguous f32 [4, C] on the rois' device")
+    n = b * r
+    out = torch.empty((n, output_size, output_size, c), dtype=out_dtype, device=rois.device)
+    if n:
+        # the geometry as XLA computes it outside the TPU kernel
+        lvl, y0, x0, geom = patch.patch_geometry(
+            rois.reshape(n, 4), [tuple(f.shape[2:]) for f in features], spatial_scales,
+            output_size)
+        lvl = lvl.to(torch.int32).contiguous()
+        origin = torch.stack([y0, x0], dim=1).to(torch.int32).contiguous()
+        geom = geom.contiguous()
+        lib = native.library()
+        args = [*[native.ptr(f) for f in features], *[f.shape[2] for f in features],
+                *[f.shape[3] for f in features], native.ptr(lvl), native.ptr(origin),
+                native.ptr(geom)]
+        with torch.cuda.device(rois.device):
+            if scales is None:
+                status = lib.seam_roi_align_patch(
+                    *args, native.ptr(out), n, r, c, output_size, sampling_ratio,
+                    int(dtype == torch.bfloat16), native.stream(rois.device))
+            else:
+                status = lib.seam_roi_align_patch_int8(
+                    *args, native.ptr(scales), native.ptr(out), n, r, c, output_size,
+                    sampling_ratio, int(out_dtype == torch.bfloat16), native.stream(rois.device))
+        native.check(status, name)
+        wrapper.launches += 1
+    return out.permute(0, 3, 1, 2)
 
 
 def roi_align_adjoint(grad: torch.Tensor, rois: torch.Tensor,
@@ -128,17 +227,18 @@ roi_align_adjoint.launches = 0
 
 
 class RoIAlignFunction(torch.autograd.Function):
-    """Differentiable multilevel RoIAlign: forward K2 (or its plain version
-    for CPU tensors), backward K5 (or the plain adjoint).  The rois get no
-    gradient.  ``apply(rois, output_size, sampling_ratio, spatial_scales,
-    *features)``."""
+    """Differentiable multilevel RoIAlign: the given forward (``_forward``,
+    K2, or ``_patch_forward``, K6; their plain versions for CPU tensors),
+    backward K5 (or the plain adjoint), the exact adjoint of K2.  The rois
+    get no gradient.  ``apply(forward, rois, output_size, sampling_ratio,
+    spatial_scales, *features)``."""
 
     @staticmethod
-    def forward(ctx, rois, output_size, sampling_ratio, spatial_scales, *features):
+    def forward(ctx, forward, rois, output_size, sampling_ratio, spatial_scales, *features):
         ctx.save_for_backward(rois)
         ctx.meta = (output_size, sampling_ratio, spatial_scales,
                     [tuple(f.shape[2:]) for f in features], features[0].dtype)
-        return _forward(features, rois, output_size, sampling_ratio, spatial_scales)
+        return forward(features, rois, output_size, sampling_ratio, spatial_scales)
 
     @staticmethod
     def backward(ctx, grad):
@@ -150,4 +250,4 @@ class RoIAlignFunction(torch.autograd.Function):
         g = g.view(b, r, output_size, output_size, -1)
         grads = roi_align_adjoint(g, rois.contiguous(), level_shapes, dtype, sampling_ratio,
                                   spatial_scales)
-        return (None, None, None, None) + grads
+        return (None, None, None, None, None) + grads

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's jax-free modules (config,
-anchors, tracking) agree with their originals: the port may not import
-them, so the copies must not drift."""
+anchors, tracking, prefetch, the numpy box IoU of ops/rle) agree with their
+originals: the port may not import them, so the copies must not drift."""
 
 import dataclasses
 
@@ -44,3 +44,23 @@ def test_tracking_copies_agree():
     body = lambda m: inspect.getsource(m).split('"""', 2)[2]  # noqa: E731
     assert body(tracking) == body(jax_tracking)
     assert build_tracklets.__name__ == jax_tracklets.__name__
+
+
+def test_prefetch_copy_agrees():
+    import inspect
+    from seam_match_rcnn_tpu.data import prefetch as jax_prefetch
+    from seam_match_rcnn_tpu_torch.data import prefetch
+    body = lambda m: inspect.getsource(m).split('"""', 2)[2]  # noqa: E731
+    assert body(prefetch) == body(jax_prefetch)
+    assert list(prefetch.prefetch(iter(range(5)), depth=2)) == list(range(5))
+
+
+def test_box_iou_xywh_copy_agrees():
+    from seam_match_rcnn_tpu.ops.rle import box_iou_xywh as jax_iou
+    from seam_match_rcnn_tpu_torch.eval.multidf2 import box_iou_xywh
+    rng = np.random.RandomState(0)
+    a = np.concatenate([rng.uniform(0, 100, (7, 2)), rng.uniform(0, 60, (7, 2))], 1)
+    b = np.concatenate([rng.uniform(0, 100, (5, 2)), rng.uniform(0, 60, (5, 2))], 1)
+    b[0] = a[0]
+    b[1, 2:] = 0.0  # an empty box
+    np.testing.assert_allclose(box_iou_xywh(a, b), jax_iou(a, b), rtol=1e-12, atol=1e-15)

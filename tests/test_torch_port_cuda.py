@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K7 against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; every test skips (through the fixture below) when
 ``torch.cuda.is_available()`` is False.  On the machine with the card, run
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem
+from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
 from seam_match_rcnn_tpu_torch.ops.roi_align import (multilevel_roi_align,
                                                       multilevel_roi_align_adjoint)
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
@@ -161,6 +162,88 @@ def test_roi_align_function_backward_on_the_card(card):
         assert np.all(np.abs(a - w) <= 1e-5 * m + 1e-7 + _bf16_ulp(w))
 
 
+def _k6_rois(rng, b, n):
+    """The mix of K5's card tests, borders among them, and 4 slivers per
+    image that overflow K6's 40x48-cell window at P2."""
+    rois = np.concatenate([_k5_rois(rng, b, n, "mix"), _k5_rois(rng, b, 8, "borders"),
+                           np.tile(np.asarray([[[100, 40, 162, 230], [400, 100, 462, 290],
+                                                 [40, 100, 245, 158], [300, 300, 505, 358]]],
+                                              np.float32), (b, 1, 1))], axis=1)
+    assert patch.footprint_clamp_mask(torch.from_numpy(rois), K5_LEVELS).sum() >= 4 * b
+    return rois
+
+
+@pytest.mark.parametrize("dtype,o", [(torch.float32, 7), (torch.float32, 14),
+                                     (torch.bfloat16, 7), (torch.bfloat16, 14)])
+def test_roi_align_patch_kernel_matches_plain(card, dtype, o):
+    rng = np.random.RandomState(20 + o)
+    b, c = 2, 96
+    feats = [torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(card, dtype)
+             .contiguous(memory_format=torch.channels_last) for h, w in K5_LEVELS]
+    rois = torch.from_numpy(_k6_rois(rng, b, 150)).to(card)
+    n0 = cuda_roi_align.roi_align_patch.launches
+    got = cuda_roi_align.roi_align_patch(feats, rois, o)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align_patch.launches == n0 + 1
+    want = patch.roi_align_patch(feats, rois, o)
+    assert got.shape == want.shape == (rois.shape[0] * rois.shape[1], c, o, o)
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    err = np.abs(got - want)
+    if dtype == torch.float32:
+        # the same rounded operator entries; only the order of the f32 sums differs
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        # exact products, f32 sums rounded to bf16 once: one ulp, rarely
+        assert np.all(err <= _bf16_ulp(want)) and (err > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("o,out_dtype", [(7, torch.bfloat16), (14, torch.float32)])
+def test_roi_align_patch_int8_kernel_matches_plain(card, o, out_dtype):
+    rng = np.random.RandomState(30 + o)
+    b, c = 2, 96
+    feats = [torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(card, torch.bfloat16)
+             .contiguous(memory_format=torch.channels_last) for h, w in K5_LEVELS]
+    q, scales = patch.quantize_features_int8(feats)
+    assert all(t.is_contiguous(memory_format=torch.channels_last) for t in q)
+    rois = torch.from_numpy(_k6_rois(rng, b, 150)).to(card)
+    n0 = cuda_roi_align.roi_align_patch_int8.launches
+    got = cuda_roi_align.roi_align_patch_int8(q, scales, rois, o, out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align_patch_int8.launches == n0 + 1
+    want = patch.roi_align_patch(q, rois, o, scales=scales, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    # integer sums (exact in any order), the same f32 dequantization: bit-equal
+    assert torch.equal(got, want)
+
+
+def test_roi_align_patch_backward_on_the_card(card):
+    """The "pallas" backend's autograd: K6 forward, K5 backward (the exact
+    adjoint), as the JAX package's pallas_roi_align_trainable."""
+    rng = np.random.RandomState(8)
+    b, n, c = 2, 40, 32
+    base = [torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(card, torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for h, w in K5_LEVELS]
+    rois = torch.from_numpy(_k6_rois(rng, b, n)).to(card)
+    g = torch.from_numpy(rng.randn(b * rois.shape[1], c, 7, 7).astype(np.float32)).to(
+        card, torch.bfloat16)
+    feats = [f.clone().requires_grad_(True) for f in base]
+    n0, a0 = cuda_roi_align.roi_align_patch.launches, cuda_roi_align.roi_align_adjoint.launches
+    out = cuda_roi_align.roi_align_patch(feats, rois, 7)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align_patch.launches == n0 + 1
+    assert cuda_roi_align.roi_align_adjoint.launches == a0 + 1
+    gf = g.float().permute(0, 2, 3, 1).reshape(b, -1, 7, 7, c).contiguous()
+    want = multilevel_roi_align_adjoint(gf, rois, K5_LEVELS)
+    mass = multilevel_roi_align_adjoint(gf.abs(), rois, K5_LEVELS)
+    for f, w, m in zip(feats, want, mass):
+        assert f.grad.dtype == torch.bfloat16 and f.grad.shape == f.shape
+        a = f.grad.float().permute(0, 2, 3, 1).cpu().numpy()
+        w, m = w.cpu().numpy(), m.cpu().numpy()
+        assert np.all(np.abs(a - w) <= 1e-5 * m + 1e-7 + _bf16_ulp(w))
+
+
 @pytest.mark.parametrize("s,t", [(1, 1), (1, 10), (64, 10), (5, 32)])
 def test_nlb_kernel_matches_plain(card, s, t):
     rng = np.random.RandomState(s * 100 + t)
@@ -210,3 +293,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
                                                      dtype=torch.bfloat16),
                                          torch.zeros((1, 2, 4), device=card),
                                          K5_LEVELS, torch.float32)
+    rois = torch.zeros((1, 2, 4), device=card)
+    with pytest.raises(ValueError):  # NCHW, not channels_last
+        cuda_roi_align.roi_align_patch(feats, rois, 7)
+    cl = [f.contiguous(memory_format=torch.channels_last) for f in feats]
+    with pytest.raises(ValueError):  # an output larger than the kernel's tap tables
+        cuda_roi_align.roi_align_patch(cl, rois, 28)
+    q = [f.to(torch.int8) for f in cl]
+    with pytest.raises(ValueError):  # int8 levels need their [4, C] scales
+        cuda_roi_align.roi_align_patch_int8(q, torch.ones((4, 3), device=card), rois, 7,
+                                            torch.float32)
+    with pytest.raises(ValueError):  # K7 takes int8 levels only
+        cuda_roi_align.roi_align_patch_int8(cl, torch.ones((4, 8), device=card), rois, 7,
+                                            torch.float32)

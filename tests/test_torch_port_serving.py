@@ -1,10 +1,10 @@
 """SeamRetrieval, port vs JAX: build_gallery + retrieve on shared weights.
 
-The reduced config of tests/test_serving.py (XLA backends on the JAX side —
-interpret-mode kernels are too slow at the 800x1344 canvas — and the port's
-plain versions on the CPU), JAX ingest on the device so both sides resize
-with half-pixel bilinear interpolation.  Images are numpy rectangles on
-noise at non-canvas sizes, landscape and portrait.
+The reduced config of tests/test_serving.py (XLA backends on the JAX side
+and the port's plain versions on the CPU) on 96x128 / 128x96 canvases, JAX
+ingest on the device so both sides resize with half-pixel bilinear
+interpolation.  Images are numpy rectangles on noise at non-canvas sizes,
+landscape and portrait.
 """
 
 import numpy as np
@@ -12,14 +12,14 @@ import torch
 
 import jax
 
-from seam_match_rcnn_tpu.config import (EvalConfig, ModelConfig, RoIHeadsConfig, RPNConfig,
-                                        TransformConfig)
+from seam_match_rcnn_tpu.config import EvalConfig, ModelConfig, RoIHeadsConfig, RPNConfig
 from seam_match_rcnn_tpu.models.matchrcnn import init_model as jax_init
 from seam_match_rcnn_tpu.serving import SeamRetrieval as JaxSeamRetrieval
 
 from seam_match_rcnn_tpu_torch.ckpt.from_jax import load_jax_variables
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.serving import Gallery, SeamRetrieval
+from torch_port_canvas import Canvas96x128, JaxCanvas96x128
 
 torch.set_num_threads(2)
 
@@ -33,10 +33,10 @@ def _image(rng, h, w):
 
 
 def test_retrieval_matches_jax(tmp_path):
-    cfg = ModelConfig(rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=80),
-                      roi_heads=RoIHeadsConfig(detections_per_img=6),
-                      transform=TransformConfig(min_size=96, max_size=128),
-                      compute_dtype="float32")
+    kw = dict(rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=80),
+              roi_heads=RoIHeadsConfig(detections_per_img=6), compute_dtype="float32")
+    cfg = ModelConfig(transform=JaxCanvas96x128(min_size=96, max_size=128), **kw)
+    port_cfg = ModelConfig(transform=Canvas96x128(min_size=96, max_size=128), **kw)
     jmodel, variables = jax_init(cfg, video=True, canvas=(64, 64))
     rng = np.random.RandomState(3)
     params = jax.tree.map(np.asarray, variables["params"])
@@ -54,7 +54,8 @@ def test_retrieval_matches_jax(tmp_path):
     jgal = jretr.build_gallery(shops, keys=keys)
     want = jretr.retrieve(frames, jgal, k=2)
 
-    retr = SeamRetrieval(load_jax_variables(init_model(cfg, video=True, device="cpu"), variables),
+    retr = SeamRetrieval(load_jax_variables(init_model(port_cfg, video=True, device="cpu"),
+                                            variables),
                          cfg=ecfg, chunk=4)
     gal = Gallery.load(retr.build_gallery(shops, keys=keys).save(str(tmp_path / "g")))
     got = retr.retrieve(frames, gal, k=2)

@@ -1,7 +1,8 @@
 """The port's phase-1 epoch loop on the CPU: mixed-orientation batches
 through the whole serving profile (fused stem and tile-resident RoIAlign,
-their plain versions here), the non-finite-loss guard, and the GT boxes
-scaled with their image (F-ref-2: the JAX engine leaves them unscaled)."""
+their plain versions here) on 64x96 / 96x64 canvases, the non-finite-loss
+guard, and the GT boxes scaled with their image (F-ref-2: the JAX engine
+leaves them unscaled)."""
 
 import json
 import types
@@ -23,6 +24,7 @@ from seam_match_rcnn_tpu_torch.train.engine import (NonFiniteLossError,
 from seam_match_rcnn_tpu_torch.train.optim import multistep_warmup_schedule, sgd
 from seam_match_rcnn_tpu_torch.train.steps import Phase1Trainer
 from seam_match_rcnn_tpu_torch.utils.logging import ScalarWriter
+from torch_port_canvas import Canvas64x96
 
 torch.set_num_threads(2)
 TRANSFORM = dict(min_size=48, max_size=64)
@@ -56,7 +58,7 @@ def _model():
                       batch_size_per_image=32),
         roi_heads=RoIHeadsConfig(batch_size_per_image=32, detections_per_img=8,
                                  roi_align_backend="pallas_resident"),
-        transform=TransformConfig(**TRANSFORM), compute_dtype="float32",
+        transform=Canvas64x96(**TRANSFORM), compute_dtype="float32",
         stem_backend="pallas", freeze_backbone_stages=True)
     return init_model(cfg, device="cpu", seed=1)
 

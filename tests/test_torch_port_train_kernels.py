@@ -111,7 +111,8 @@ def test_roi_align_function_gradcheck_float64():
                          [[5.0, 5.0, 9.0, 7.0], [-4.0, 10.0, 20.0, 40.0], [1.0, 1.0, 1.0, 1.0]]])
 
     def fn(*fs):
-        return RoIAlignFunction.apply(rois, 3, 2, (0.25, 0.125, 0.0625, 0.03125), *fs)
+        return RoIAlignFunction.apply(cuda_roi_align._forward, rois, 3, 2,
+                                      (0.25, 0.125, 0.0625, 0.03125), *fs)
 
     assert torch.autograd.gradcheck(fn, tuple(feats), eps=1e-6, atol=1e-5, rtol=1e-4)
     # roi_align routes through the Function when a level needs a gradient
