@@ -175,14 +175,42 @@ def planted_rois(rois):
     return rois
 
 
-def patch_operations(rois, o):
-    """Multiply-adds of the patch-window RoIAlign on these rois, per
-    channel: the (y tap, x tap) pairs with weight in each output bin."""
-    _, _, _, g = patch.patch_geometry(rois.reshape(-1, 4), PYRAMID, SPATIAL_SCALES, o)
-    wy = patch.interp_matrix(g[:, 0], g[:, 2], g[:, 4], g[:, 5], o, 2, patch.PATCH)
-    wx = patch.interp_matrix(g[:, 1], g[:, 3], g[:, 6], g[:, 7], o, 2, patch.PATCH_W)
-    ny, nx = (wy != 0).sum(dim=(1, 2)).double(), (wx != 0).sum(dim=(1, 2)).double()
-    return float((ny * nx).sum())
+def patch_work(rois, o):
+    """The work of the patch-window RoIAlign on these [B, R, 4] rois, per
+    channel: (multiply-adds, the (y tap, x tap) pairs with weight in each
+    output bin; the distinct (image, level, row, column) cells that carry
+    a non-zero tap, which is all of the pyramid that it must read)."""
+    b, r = rois.shape[:2]
+    dev = rois.device
+    lvl, y0, x0, g = patch.patch_geometry(rois.reshape(-1, 4), PYRAMID, SPATIAL_SCALES, o)
+    wy = patch.interp_matrix(g[:, 0], g[:, 2], g[:, 4], g[:, 5], o, 2, patch.PATCH) != 0
+    wx = patch.interp_matrix(g[:, 1], g[:, 3], g[:, 6], g[:, 7], o, 2, patch.PATCH_W) != 0
+    ny, nx = wy.sum(dim=(1, 2)).double(), wx.sum(dim=(1, 2)).double()
+    # window cell (i, j) is level cell (y0 + i, x0 + j) and carries a tap
+    # when some bin's y taps hold row i and some bin's x taps column j
+    img = torch.arange(b, device=dev).repeat_interleave(r)
+    cells = 0
+    for level, (h, w) in enumerate(PYRAMID):
+        at = lvl == level
+        rows = torch.zeros((int(at.sum()), h + 1 + patch.PATCH), device=dev)
+        rows.scatter_(1, y0[at, None] + 1 + torch.arange(patch.PATCH, device=dev),
+                      wy[at].any(1).float())
+        cols = torch.zeros((int(at.sum()), w + 1 + patch.PATCH_W), device=dev)
+        cols.scatter_(1, x0[at, None] + 1 + torch.arange(patch.PATCH_W, device=dev),
+                      wx[at].any(1).float())
+        rows, cols = rows[:, 1:h + 1], cols[:, 1:w + 1]
+        for i in range(b):
+            mine = img[at] == i
+            cells += int(((rows[mine].T @ cols[mine]) > 0).sum())
+    return float((ny * nx).sum()), cells
+
+
+def exact_cells(rois, o):
+    """The distinct (image, level, row, column) cells that carry a non-zero
+    bilinear weight of the exact RoIAlign on these [B, R, 4] rois: where the
+    plain adjoint of a cotangent of ones is non-zero (the weights are >= 0)."""
+    ones = torch.ones(tuple(rois.shape[:2]) + (o, o, 1), device=rois.device)
+    return sum(int((g != 0).sum()) for g in multilevel_roi_align_adjoint(ones, rois, PYRAMID))
 
 
 def nbytes(*ts) -> int:
@@ -245,8 +273,10 @@ def phase_kernels(dev, results):
         err, tol, ok = check_bf16(got, want)
         ms = median_ms(lambda: cuda_roi_align.roi_align(feats, rois, o), reps)
         pms = median_ms(lambda: multilevel_roi_align(feats, rois, o), 3)
-        # 4 corners x ratio^2 samples, a multiply and an add each, per output
-        b_ms, b_by = bound(nbytes(*feats, rois, got), got.numel() * 4 * 4 * 2, "f32")
+        # the cells with a weight, once; 4 corners x ratio^2 samples, a
+        # multiply and an add each, per output
+        b_ms, b_by = bound(exact_cells(rois, o) * 256 * 2 + nbytes(rois, got),
+                           got.numel() * 4 * 4 * 2, "f32")
         cases.append(dict(shape=f"{b}x{n} rois {o}x{o} bf16", max_abs_err=err, tol=tol,
                           ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
                           bound_by=b_by))
@@ -357,26 +387,38 @@ def phase_kernels(dev, results):
 
 def phase_kernels_patch(dev, rng, gen, results):
     """K6 (bf16 and f32 features) and K7 (the bf16 pyramid quantized to
-    int8, bf16 out) at K2's serving shapes, 6 window-overflowing rois
-    planted in each image; the plain int8 quantization is timed beside K7."""
+    int8, bf16 out) at K2's serving shapes, and K6 (bf16) at the training
+    shapes of the "pallas" step, 6 window-overflowing rois planted in each
+    image; the plain int8 quantization is timed beside K7.  Bytes count the
+    cells with a tap, the rois, the per-roi geometry the kernel reads
+    (level, origin and 8 f32), the scales and the output."""
     k6, k7 = [], []
-    for b, n, o, reps in ((11, 4000, 7, 10), (11, 100, 14, 20)):
+    for b, n, o, reps, serving in ((11, 4000, 7, 10, True), (11, 100, 14, 20, True),
+                                   (8, 512, 7, 10, False), (8, 128, 14, 20, False)):
         rois = planted_rois(serving_rois(rng, b, n)).to(dev)
         clamped = int(patch.footprint_clamp_mask(rois, PYRAMID, output_size=o).sum())
-        taps = patch_operations(rois, o) * 256
+        taps, cells = patch_work(rois, o)
+        taps *= 256
+        small = nbytes(rois) + b * n * (3 * 4 + 8 * 4)
         base = [torch.randn((b, 256, h, w), generator=gen, device=dev) for h, w in PYRAMID]
-        for dtype, op_type in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        dtypes = (((torch.bfloat16, "bf16"), (torch.float32, "f32")) if serving
+                  else ((torch.bfloat16, "bf16"),))
+        for dtype, op_type in dtypes:
             feats = [f.to(dtype).contiguous(memory_format=torch.channels_last) for f in base]
             got = cuda_roi_align.roi_align_patch(feats, rois, o)
             want = patch.roi_align_patch(feats, rois, o)
             err, tol, ok = (check_bf16 if dtype == torch.bfloat16 else check_f32)(got, want)
             ms = median_ms(lambda: cuda_roi_align.roi_align_patch(feats, rois, o), reps)
             pms = median_ms(lambda: patch.roi_align_patch(feats, rois, o), 3)
-            b_ms, b_by = bound(nbytes(*feats, rois, got), 2 * taps, op_type)
+            b_ms, b_by = bound(cells * 256 * got.element_size() + small + nbytes(got),
+                               2 * taps, op_type)
             k6.append(dict(shape=f"{b}x{n} rois {o}x{o} {op_type} ({clamped} clamped)",
                            max_abs_err=err, tol=tol, ok=ok, ms=ms, plain_ms=pms,
                            library_ms=None, bound_ms=b_ms, bound_by=b_by))
             del got, want, feats
+        if not serving:
+            del base
+            continue
         feats = [f.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
                  for f in base]
         del base
@@ -391,7 +433,7 @@ def phase_kernels_patch(dev, rng, gen, results):
                                                                    torch.bfloat16), reps)
         pms = median_ms(lambda: patch.roi_align_patch(q, rois, o, scales=scales,
                                                       out_dtype=torch.bfloat16), 3)
-        b_ms, b_by = bound(nbytes(*q, scales, rois, got), 2 * taps, "int8")
+        b_ms, b_by = bound(cells * 256 + small + nbytes(scales, got), 2 * taps, "int8")
         k7.append(dict(shape=f"{b}x{n} rois {o}x{o} int8 -> bf16 ({clamped} clamped)",
                        max_abs_err=err, tol="0 (bit-equal)", ok=ok, ms=ms, plain_ms=pms,
                        library_ms=None, bound_ms=b_ms, bound_by=b_by, quantize_ms=qms))
@@ -405,13 +447,16 @@ def phase_kernels_patch(dev, rng, gen, results):
     torch.cuda.empty_cache()
 
 
-def synthetic_image(rng, h, w):
-    """A garment-like colored rectangle on noise, HWC float in [0, 1]."""
+def synthetic_image(rng, h, w, color=None):
+    """A garment-like rectangle of ``color`` (random when None) on noise:
+    the HWC float image in [0, 1] and the rectangle's xyxy box."""
     img = rng.uniform(0.0, 0.25, (h, w, 3)).astype(np.float32)
     bh, bw = int(h * rng.uniform(0.3, 0.7)), int(w * rng.uniform(0.3, 0.7))
     y, x = rng.randint(0, h - bh), rng.randint(0, w - bw)
-    img[y:y + bh, x:x + bw] = rng.uniform(0.3, 1.0, 3) + rng.uniform(-0.05, 0.05, (bh, bw, 3))
-    return img.clip(0, 1)
+    if color is None:
+        color = rng.uniform(0.3, 1.0, 3)
+    img[y:y + bh, x:x + bw] = np.clip(color + rng.uniform(-0.05, 0.05, (bh, bw, 3)), 0, 1)
+    return img, np.asarray([x, y, x + bw, y + bh], np.float32)
 
 
 def serving_model(dev, roi_align_backend="pallas_resident"):
@@ -438,8 +483,8 @@ def phase_slice(dev):
     rng = np.random.RandomState(1)
     shop_sizes = [(600, 800), (800, 600), (480, 640), (1024, 768), (720, 1280), (900, 700),
                   (500, 500), (640, 480)] * 2
-    shops = [synthetic_image(rng, h, w) for h, w in shop_sizes]
-    videos = [[synthetic_image(rng, *hw) for _ in range(10)]
+    shops = [synthetic_image(rng, h, w)[0] for h, w in shop_sizes]
+    videos = [[synthetic_image(rng, *hw)[0] for _ in range(10)]
               for hw in ((720, 1280), (1280, 720), (540, 960))]
 
     retr.retrieve(videos[0], retr.build_gallery(shops[:2]), k=1)  # warm-up (cuDNN, lazy init)
@@ -509,16 +554,6 @@ def phase_slice(dev):
     return launches, latencies, gallery_s, peak_gb
 
 
-def garment_image(rng, h, w, color):
-    """A garment of the given colour (a rectangle) on noise: the HWC float
-    image and the garment's xyxy box."""
-    img = rng.uniform(0.0, 0.25, (h, w, 3)).astype(np.float32)
-    bh, bw = int(h * rng.uniform(0.3, 0.6)), int(w * rng.uniform(0.2, 0.5))
-    y, x = rng.randint(0, h - bh), rng.randint(0, w - bw)
-    img[y:y + bh, x:x + bw] = np.clip(color + rng.uniform(-0.05, 0.05, (bh, bw, 3)), 0, 1)
-    return img, np.asarray([x, y, x + bw, y + bh], np.float32)
-
-
 def eval_sets(rng, n=8):
     """In-memory MovingFashion products (1 shop image + 10 frames of a
     720x1280 video, the garment's box per frame as the GT tracklet) and
@@ -527,13 +562,13 @@ def eval_sets(rng, n=8):
     mf, mdf2 = [], []
     for p in range(n):
         color = rng.uniform(0.3, 1.0, 3)
-        shop, _ = garment_image(rng, *shop_sizes[p % 4], color)
-        frames = [garment_image(rng, 720, 1280, color) for _ in range(10)]
+        shop, _ = synthetic_image(rng, *shop_sizes[p % 4], color)
+        frames = [synthetic_image(rng, 720, 1280, color) for _ in range(10)]
         mf.append({"images": [shop] + [im for im, _ in frames],
                    "tracklet_gt": np.stack([box for _, box in frames]),
                    "source": 1 if p % 2 else 0, "key": f"product{p}"})
-        shots = [garment_image(rng, *shop_sizes[(p + 1) % 4], color)] + [
-            garment_image(rng, *hw, color) for hw in ((720, 1280), (1280, 720), (720, 1280))]
+        shots = [synthetic_image(rng, *shop_sizes[(p + 1) % 4], color)] + [
+            synthetic_image(rng, *hw, color) for hw in ((720, 1280), (1280, 720), (720, 1280))]
         mdf2.append({"images": [im for im, _ in shots],
                      "targets": [{"boxes": box[None], "styles": np.asarray([1]),
                                   "pair_ids": np.asarray([p])} for _, box in shots],

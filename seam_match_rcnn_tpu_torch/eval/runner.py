@@ -1,10 +1,10 @@
 """Batched inference runner: host-side bucketing around the model forward.
 
 Port of ``seam_match_rcnn_tpu/eval/runner.py`` with its device ingest:
-images are grouped by source geometry, resized on the device into their
-orientation canvas, split into chunks, run through ``MatchRCNN.inference``
-(plus the aggregator's descriptors), and returned per image with boxes
-mapped back to original coordinates (torchvision
+images are resized on the device into their orientation canvas, grouped
+into batches, split into chunks, run through ``MatchRCNN.inference`` (plus
+the aggregator's descriptors), and returned per image with boxes mapped
+back to original coordinates (torchvision
 ``GeneralizedRCNNTransform.postprocess``).
 """
 
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..models.matchrcnn import MatchRCNN
-from ..models.transform import device_batch_images, resize_boxes_back
+from ..models.transform import batch_images, device_batch_images, resize_boxes_back
 
 
 def _chunk_plan(n: int, chunk: int):
@@ -52,13 +52,25 @@ class InferenceRunner:
         self.chunk = chunk
         self.device = next(model.parameters()).device
 
+    def batches(self, images: List[np.ndarray]):
+        """The forward batches.  Under "pallas_int8" the int8 pyramid's
+        scales span a forward batch, so images are batched as the JAX
+        device ingest batches them, one batch per source geometry.  Every
+        other backend's outputs are per image, whatever shares the batch:
+        there the two orientation canvases fill more of each chunk, which
+        matters for a gallery of images of many sizes."""
+        batch = (device_batch_images
+                 if self.model.cfg.roi_heads.roi_align_backend == "pallas_int8"
+                 else batch_images)
+        return batch(images, self.model.cfg.transform, self.device)
+
     def __call__(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """images: HWC arrays in [0, 1] (or uint8).  Returns one dict per image
         (input order) of numpy arrays: boxes [D, 4] in ORIGINAL image
         coordinates, scores, labels, valid [D], match_features and
         aggr_features [D, 256]."""
         results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
-        for bucket in device_batch_images(images, self.model.cfg.transform, self.device):
+        for bucket in self.batches(images):
             n = bucket.pixels.shape[0]
             for s, size in _chunk_plan(n, self.chunk):
                 e = s + size

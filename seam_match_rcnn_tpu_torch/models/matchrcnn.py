@@ -159,9 +159,9 @@ class MatchRCNN(nn.Module):
     def _roi_align(self, levels: Sequence[torch.Tensor], rois: torch.Tensor,
                    output_size: int, prequant=None) -> torch.Tensor:
         """levels from ``roi_levels`` (P2..P5; a P6 after them is ignored),
-        ``prequant`` from ``_quantize_pyramid`` (made here when None); [B, R,
-        4] rois -> [B*R, C, out, out] in the features' dtype.  Differentiable
-        in the features (K5 backward), but for "pallas_int8"."""
+        ``prequant`` from ``_quantize_pyramid`` (required by "pallas_int8");
+        [B, R, 4] rois -> [B*R, C, out, out] in the features' dtype.
+        Differentiable in the features (K5 backward), but for "pallas_int8"."""
         rh = self.cfg.roi_heads
         backend, ratio = rh.roi_align_backend, rh.sampling_ratio
         if backend == "xla":
@@ -172,7 +172,10 @@ class MatchRCNN(nn.Module):
         if backend == "pallas":
             out = roi_align_patch(levels[:4], rois, output_size, ratio)
         else:
-            q, scales = prequant if prequant is not None else self._quantize_pyramid(levels)
+            if prequant is None:
+                raise ValueError('"pallas_int8" needs the int8 pyramid of the forward: pass '
+                                 "prequant=self._quantize_pyramid(levels)")
+            q, scales = prequant
             out = roi_align_patch_int8(q, scales, rois, output_size, levels[0].dtype, ratio)
         if rh.roi_align_fixup_budget > 0:
             out = apply_exact_fixup(levels[:4], rois, out, output_size, ratio,

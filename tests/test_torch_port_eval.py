@@ -10,7 +10,8 @@ around it.  The models share weights through the bridge; the harnesses use
 only their scorers' last layers and the aggregator (NLB + attention pooling).
 Metric files, per-product accuracies, CSVs and returned top-1 values must be
 equal.  Also: the port's runner forms the same forward batches as the JAX
-package's device ingest (the int8 pyramid's scales span a batch), and the
+package's device ingest under "pallas_int8" (the int8 pyramid's scales span
+a batch) and its orientation canvases under the other backends, and the
 cv2 host ingest is refused.
 
 Then MovingFashion end to end under the int8 RoIAlign: the port's
@@ -26,6 +27,7 @@ port's wrappers take their plain versions.
 """
 
 import json
+import types
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +44,7 @@ from seam_match_rcnn_tpu.eval import movingfashion as jax_mf
 from seam_match_rcnn_tpu.eval import multidf2 as jax_mdf2
 from seam_match_rcnn_tpu.eval.runner import InferenceRunner as JaxRunner
 from seam_match_rcnn_tpu.models.matchrcnn import make_model
+from seam_match_rcnn_tpu.models.transform import batch_images as jax_host_batches
 from seam_match_rcnn_tpu.models.transform import device_batch_images as jax_batches
 
 from seam_match_rcnn_tpu_torch.config import (EvalConfig, ModelConfig, RoIHeadsConfig, RPNConfig,
@@ -180,6 +183,26 @@ def test_runner_batches_as_the_jax_device_ingest():
         np.testing.assert_array_equal(g.orig_sizes, w.orig_sizes)
         np.testing.assert_allclose(g.pixels.permute(0, 2, 3, 1).numpy(),
                                    np.asarray(w.pixels), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["pallas_resident", "pallas", "pallas_int8"])
+def test_runner_batches_follow_the_backend(backend):
+    """Under "pallas_int8", whose scales span a forward batch, the runner
+    forms the JAX device ingest's batches, one per source geometry; under
+    the backends whose outputs are per image, the two orientation canvases
+    (the JAX host ingest's buckets), which fill more of each chunk."""
+    rng = np.random.RandomState(2)
+    sizes = [(120, 160), (160, 120), (96, 200), (120, 160), (100, 140), (160, 120)]
+    images = [rng.rand(h, w, 3).astype(np.float32) for h, w in sizes]
+    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend=backend),
+                               transform=Canvas96x128(min_size=96, max_size=128))
+    model = types.SimpleNamespace(cfg=cfg, parameters=lambda: iter([torch.zeros(1)]))
+    got = [b.indices for b in InferenceRunner(model).batches(images)]
+    jcfg = JaxCanvas96x128(min_size=96, max_size=128)
+    by_geometry = backend == "pallas_int8"
+    want = (jax_batches if by_geometry else jax_host_batches)(images, jcfg)
+    assert got == [list(w.indices) for w in want]
+    assert len(got) == (4 if by_geometry else 2)
 
 
 def test_host_ingest_waits_for_the_data_layer(models):

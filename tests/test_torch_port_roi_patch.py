@@ -234,7 +234,7 @@ def test_backend_dispatch_matches_jax(data, data_int8, backend):
     """``MatchRCNN._roi_align`` of both packages under the window backends at
     7x7, with the exact fixup on (budget 3) and, for int8, the pyramid of
     ``_quantize_pyramid``, which the forward makes once and hands to every
-    RoIAlign call."""
+    RoIAlign call (and which a call under "pallas_int8" cannot do without)."""
     feats, rois = data if backend == "pallas" else data_int8
     c = feats[0].shape[-1]
     cfg = ModelConfig(compute_dtype="float32", roi_heads=RoIHeadsConfig(
@@ -262,3 +262,6 @@ def test_backend_dispatch_matches_jax(data, data_int8, backend):
     # another order (pallas); fixed rows: the jitted exact path (docstring)
     np.testing.assert_allclose(got[~fixed], want[~fixed], rtol=0, atol=1e-5)
     np.testing.assert_allclose(got[fixed], want[fixed], rtol=0, atol=1e-4)
+    if backend == "pallas_int8":  # scales of another batch would differ: no own quantization
+        with pytest.raises(ValueError, match="prequant"):
+            port._roi_align(levels, torch.from_numpy(rois), 7)

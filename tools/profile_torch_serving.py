@@ -58,26 +58,27 @@ def stage_times(model, dev, reps=5):
         feats = timed("backbone", lambda: model.features(images))
         props, _, pvalid = timed("proposals", lambda: model.proposals(feats, sizes))
 
-        def box_branch():  # the channels_last copy of P2..P5, RoIAlign and the head
+        def box_branch():  # the backend's copy of P2..P5, RoIAlign and the head
             lv = model.roi_levels(feats)
-            return lv, model.box_branch(lv, props)
+            pq = model._quantize_pyramid(lv)
+            return lv, pq, model.box_branch(lv, props, pq)
 
-        levels, (logits, deltas) = timed("box_branch", box_branch)
+        levels, pq, (logits, deltas) = timed("box_branch", box_branch)
         det = timed("postprocess", lambda: postprocess_detections(
             logits, deltas, props, pvalid, sizes, cfg.roi_heads, fallback_score=0.1))
-        roi = timed("roi_align_14x14", lambda: model._roi_align(levels, det.boxes, 14)
+        roi = timed("roi_align_14x14", lambda: model._roi_align(levels, det.boxes, 14, pq)
                     .to(torch.float32))
         timed("match_trunk", lambda: model.match_descriptors(roi))
         timed("aggregator_trunk", lambda: model.aggregator_descriptors(roi))
-        del feats, levels, props, logits, deltas, det, roi
+        del feats, levels, pq, props, logits, deltas, det, roi
     # the first run is the warm-up
     return {k: statistics.median(v[1:]) for k, v in stages.items()}
 
 
 def request_profile(retr, dev, top=25):
     rng = np.random.RandomState(1)
-    gallery = retr.build_gallery([synthetic_image(rng, 600, 800) for _ in range(16)])
-    frames = [synthetic_image(rng, 720, 1280) for _ in range(10)]
+    gallery = retr.build_gallery([synthetic_image(rng, 600, 800)[0] for _ in range(16)])
+    frames = [synthetic_image(rng, 720, 1280)[0] for _ in range(10)]
     retr.retrieve(frames, gallery, k=5)  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
