@@ -347,11 +347,12 @@ def phase_kernels(dev, results):
                                     bound_by=cases[0]["bound_by"], library_ms=None,
                                     cases=cases)
 
-    # K4: one query against a gallery, and the N x N frame self-similarity;
-    # the library yardstick is the cuBLAS GEMM of the matmul expansion
+    # K4: one query against the smoke gallery (16 shop images) and against a
+    # gallery of 1000, and the N x N frame self-similarity; the library
+    # yardstick is the cuBLAS GEMM of the matmul expansion
     cases, all_ok, worst = [], True, 0.0
     w, b = t(rng.randn(2, 256) * 0.05), t(rng.randn(2))
-    for q, g in ((1, 1000), (1000, 1000)):
+    for q, g in ((1, 16), (1, 1000), (1000, 1000)):
         xq = t(rng.randn(q, 256))
         yg = t(rng.randn(g, 256))
         yg[:q] = xq + 1e-3 * t(rng.randn(q, 256))  # near-duplicate descriptors

@@ -7,14 +7,15 @@
 // RoIAlign is linear in the features, so its adjoint is a fixed scatter-add:
 // each output bin's cotangent is split evenly over its ratio^2 samples, and
 // each sample adds (g / ratio^2) * (w_y * w_x) to each of its 4 bilinear
-// corners.  The index and weight rule is K2's (csrc/roi_align.cu) and that of
-// the plain version, ops/roi_align.multilevel_roi_align_adjoint: LevelMapper
-// level per roi, coords scaled without a half-pixel offset, roi sizes floored
-// at 1.0, samples outside [-1, H] contribute nothing, clamp at 0 and the
-// border rule at H-1.  Geometry is computed with the plain version's operation
-// order, and the library is built with -fmad=false, so every summand equals
-// the plain version's bit for bit; only the order of the f32 additions
-// differs (atomics), and it changes from run to run.
+// corners.  The index and weight rule is K2's, from the header both include
+// (csrc/roi_geometry.cuh), and that of the plain version,
+// ops/roi_align.multilevel_roi_align_adjoint: LevelMapper level per roi,
+// coords scaled without a half-pixel offset, roi sizes floored at 1.0,
+// samples outside [-1, H] contribute nothing, clamp at 0 and the border rule
+// at H-1.  Geometry is computed with the plain version's operation order, and
+// the library is built with -fmad=false, so every summand equals the plain
+// version's bit for bit; only the order of the f32 additions differs
+// (atomics), and it changes from run to run.
 //
 // None of the TPU kernel's structure carries over: no 64x64 ownership tiles,
 // no duplication of a roi into at most 2x2 bands (which drops the tail
@@ -36,6 +37,7 @@
 // shared memory before the atomics would cut their count and is left for a
 // later change.
 #include "common.cuh"
+#include "roi_geometry.cuh"
 
 namespace {
 
@@ -45,24 +47,6 @@ struct GradPyramid {
   int w[4];
   float scale[4];
 };
-
-// torchvision bilinear_interpolate index/weight rule along one axis (K2's)
-__device__ __forceinline__ void bilinear_axis(float coord, int size, int& lo, int& hi,
-                                              float& w_lo, float& w_hi) {
-  float c = fmaxf(coord, 0.f);
-  lo = (int)floorf(c);
-  const bool at_border = lo >= size - 1;
-  if (at_border) {
-    lo = size - 1;
-    hi = size - 1;
-    c = (float)lo;
-  } else {
-    hi = lo + 1;
-  }
-  const float lerp = c - (float)lo;
-  w_lo = 1.f - lerp;
-  w_hi = lerp;
-}
 
 __global__ void __launch_bounds__(256)
 roi_adjoint_kernel(GradPyramid pyr, const float* __restrict__ g,
@@ -82,26 +66,16 @@ roi_adjoint_kernel(GradPyramid pyr, const float* __restrict__ g,
   const int pw = sx / ratio, ix = sx % ratio;
 
   const float* roi = rois + n * 4;
-  const float rx1 = roi[0], ry1 = roi[1], rx2 = roi[2], ry2 = roi[3];
-  const float area = fmaxf((rx2 - rx1) * (ry2 - ry1), 0.f);
-  float lvl = floorf((4.f + log2f(sqrtf(area) / 224.f + 1e-12f)) + 1e-6f);
-  lvl = fminf(fmaxf(lvl, 2.f), 5.f);
-  const int l = (int)lvl - 2;
-
+  const int l = seam::roi_level(roi[0], roi[1], roi[2], roi[3]);
   const float scale = pyr.scale[l];
   const int H = pyr.h[l], W = pyr.w[l];
-  const float x1 = rx1 * scale, y1 = ry1 * scale;
-  const float roi_w = fmaxf(rx2 * scale - x1, 1.f);
-  const float roi_h = fmaxf(ry2 * scale - y1, 1.f);
-  const float bin_w = roi_w / (float)O;
-  const float bin_h = roi_h / (float)O;
-  const float y = y1 + ((float)ph * bin_h + (((float)iy + 0.5f) / (float)ratio) * bin_h);
-  const float x = x1 + ((float)pw * bin_w + (((float)ix + 0.5f) / (float)ratio) * bin_w);
-  if (!(y >= -1.f && y <= (float)H && x >= -1.f && x <= (float)W)) return;
+  const float y = seam::sample_coord(seam::roi_axis(roi[1], roi[3], scale, O), ph, iy, ratio);
+  const float x = seam::sample_coord(seam::roi_axis(roi[0], roi[2], scale, O), pw, ix, ratio);
+  if (!(seam::sample_inside(y, H) && seam::sample_inside(x, W))) return;
   int ylo, yhi, xlo, xhi;
   float wylo, wyhi, wxlo, wxhi;
-  bilinear_axis(y, H, ylo, yhi, wylo, wyhi);
-  bilinear_axis(x, W, xlo, xhi, wxlo, wxhi);
+  seam::bilinear_axis(y, H, ylo, yhi, wylo, wyhi);
+  seam::bilinear_axis(x, W, xlo, xhi, wxlo, wxhi);
 
   const float gs = g[((n * O + ph) * O + pw) * C + c] / (float)(ratio * ratio);
   float* dst = pyr.grad[l] + (size_t)img * H * W * C + c;

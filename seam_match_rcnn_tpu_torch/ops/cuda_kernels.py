@@ -76,7 +76,7 @@ def nlb_aggregate(seqs: torch.Tensor, mask: torch.Tensor,
     mask32 = mask.to(torch.float32).contiguous()
     out = torch.empty((s, c), dtype=torch.float32, device=seqs.device)
     if s:
-        with torch.cuda.device(seqs.device):
+        with native.device(seqs.device):
             status = native.library().seam_nlb_aggregate(
                 native.ptr(seqs32), native.ptr(mask32), *[native.ptr(w) for w in ws],
                 native.ptr(out), s, t, native.stream(seqs.device))
@@ -88,35 +88,54 @@ def nlb_aggregate(seqs: torch.Tensor, mask: torch.Tensor,
 nlb_aggregate.launches = 0
 
 
+PAIRWISE_TILES = (16, 64)  # the tile rows K4 is built for
+PAIRWISE_SHORT_MAX_Q = 128  # the short tile's last Q
+
+
+def pairwise_tile_rows(q: int) -> int:
+    """The tile rows of K4's launch for Q query rows: the short tile (16 x
+    16 outputs a block) for a few queries, so that a request spreads the
+    gallery over many blocks, the tall one (64 x 64) as Q grows."""
+    return PAIRWISE_TILES[0] if q <= PAIRWISE_SHORT_MAX_Q else PAIRWISE_TILES[1]
+
+
+PAIRWISE_MAX_Q = 65535 * PAIRWISE_TILES[1]  # grid rows of the tall tile
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype is torch.float32 and t.is_contiguous() else t.to(torch.float32).contiguous()
+
+
 def pairwise_scores(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """x [Q, C], y [G, C], w [2, C], b [2] -> [Q, G] f32 match probability
     (the math of ``ops.pairwise.pairwise_match_scores``).  CPU tensors take
-    the plain version; the kernel takes C a multiple of 16."""
+    the plain version; the kernel takes C a multiple of 4 and x, y, w
+    16-byte aligned, and forms v = w1 - w0 and c0 = b1 - b0 itself.  A
+    request is launch-bound, so the checks are one expression, and f32
+    contiguous inputs cost one launch besides the output's allocation."""
     if x.device.type == "cpu":
         return pairwise_match_scores(x, y, w, b)
-    name = "pairwise_scores"
-    req = native.require
-    req(x.device.type == "cuda", name, f"x on {x.device}, not cuda")
-    req(x.dim() == 2 and y.dim() == 2 and x.shape[1] == y.shape[1], name,
-        "x and y must be [Q, C] and [G, C]")
-    q, c = x.shape
-    g = y.shape[0]
-    req(c % 16 == 0 and c > 0, name, f"C = {c} must be a positive multiple of 16")
-    req(tuple(w.shape) == (2, c) and tuple(b.shape) == (2,), name, "w [2, C], b [2]")
-    req(y.device == x.device and w.device == x.device and b.device == x.device, name,
-        "all inputs on one device")
-    xs = x.to(torch.float32).contiguous()
-    ys = y.to(torch.float32).contiguous()
-    v = (w[1] - w[0]).to(torch.float32).contiguous()
-    c0 = (b[1:] - b[:1]).to(torch.float32).contiguous()
-    out = torch.empty((q, g), dtype=torch.float32, device=x.device)
+    x, y, w, b = _f32(x), _f32(y), _f32(w), _f32(b)
+    dev = x.device
+    two_d = x.dim() == 2 and y.dim() == 2
+    q, c, g = (x.shape[0], x.shape[1], y.shape[0]) if two_d else (0, 0, 0)
+    if not (two_d and dev.type == "cuda" and y.shape[1] == c and c > 0 and c % 4 == 0
+            and q <= PAIRWISE_MAX_Q and w.shape == (2, c) and b.shape == (2,)
+            and y.device == dev and w.device == dev and b.device == dev
+            and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"pairwise_scores: needs x [Q, C], y [G, C], w [2, C] and b [2] on one CUDA "
+            f"device, C a positive multiple of 4, Q <= {PAIRWISE_MAX_Q}, and x, y, w "
+            f"16-byte aligned; got x {tuple(x.shape)} on {dev}, y {tuple(y.shape)} on "
+            f"{y.device}, w {tuple(w.shape)}, b {tuple(b.shape)}")
+    out = torch.empty((q, g), dtype=torch.float32, device=dev)
     if q and g:
-        with torch.cuda.device(x.device):
+        with native.device(dev):
             status = native.library().seam_pairwise_scores(
-                native.ptr(xs), native.ptr(ys), native.ptr(v), native.ptr(c0),
-                native.ptr(out), q, g, c, native.stream(x.device))
-        native.check(status, name)
+                native.ptr(x), native.ptr(y), native.ptr(w), native.ptr(b), native.ptr(out),
+                q, g, c, pairwise_tile_rows(q), native.stream(dev))
+        native.check(status, "pairwise_scores")
         pairwise_scores.launches += 1
     return out
 

@@ -33,14 +33,20 @@ from . import roi_align_patch as patch
 from .roi_align import SPATIAL_SCALES, multilevel_roi_align, multilevel_roi_align_adjoint
 
 
+ROI_ALIGN_THREADS = 256  # K2's block; one thread per 16 bytes of a pixel's channels
+ROI_ALIGN_MAX_SAMPLES = 64  # K2's sample coordinates per axis, output_size x ratio
+
+
 def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
               sampling_ratio: int = 2,
               spatial_scales: Tuple[float, ...] = SPATIAL_SCALES) -> torch.Tensor:
     """features: P2..P5 as [B, C, H_l, W_l]; rois [B, R, 4] -> [B*R, C, out,
     out] in the features' dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which needs channels_last features in f32 or
-    bf16 and f32 rois.  When a level requires a gradient, the call goes
-    through ``RoIAlignFunction``, whose backward is K5."""
+    tensors launch the kernel, which needs channels_last, 16-byte aligned
+    features in f32 or bf16 with C a multiple of 4 (f32) or 8 (bf16), f32
+    rois and output_size x sampling_ratio <= 64.  When a level requires a
+    gradient, the call goes through ``RoIAlignFunction``, whose backward is
+    K5."""
     if torch.is_grad_enabled() and any(f.requires_grad for f in features):
         return RoIAlignFunction.apply(_forward, rois, output_size, sampling_ratio,
                                       tuple(spatial_scales), *features)
@@ -72,12 +78,23 @@ def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
         return multilevel_roi_align(features, rois, output_size, sampling_ratio,
                                     spatial_scales)
     name = "roi_align"
+    req = native.require
     dtype = features[0].dtype
     b, r, c = _check_levels(name, features, rois, spatial_scales, (torch.float32, torch.bfloat16))
+    vec = 16 // features[0].element_size()  # channels a thread loads at once
+    req(c > 0 and c % vec == 0 and c // vec <= ROI_ALIGN_THREADS, name,
+        f"C = {c} must be a positive multiple of {vec}, at most {ROI_ALIGN_THREADS * vec}")
+    req(output_size >= 1 and sampling_ratio >= 1
+        and output_size * sampling_ratio <= ROI_ALIGN_MAX_SAMPLES, name,
+        f"output_size x sampling_ratio must be in [1, {ROI_ALIGN_MAX_SAMPLES}]")
+    req(all(f.shape[2] * f.shape[3] * c < 2**31 for f in features), name,
+        "a level's H x W x C must be below 2^31 (32-bit indexing)")
+    req(all(f.data_ptr() % 16 == 0 for f in features), name,
+        "every level must be 16-byte aligned")
     n = b * r
     out = torch.empty((n, output_size, output_size, c), dtype=dtype, device=rois.device)
     if n:
-        with torch.cuda.device(rois.device):
+        with native.device(rois.device):
             status = native.library().seam_roi_align_forward(
                 *[native.ptr(f) for f in features],
                 *[f.shape[2] for f in features], *[f.shape[3] for f in features],
@@ -160,7 +177,7 @@ def _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales, 
         args = [*[native.ptr(f) for f in features], *[f.shape[2] for f in features],
                 *[f.shape[3] for f in features], native.ptr(lvl), native.ptr(origin),
                 native.ptr(geom)]
-        with torch.cuda.device(rois.device):
+        with native.device(rois.device):
             if scales is None:
                 status = lib.seam_roi_align_patch(
                     *args, native.ptr(out), n, r, c, output_size, sampling_ratio,
@@ -212,7 +229,7 @@ def roi_align_adjoint(grad: torch.Tensor, rois: torch.Tensor,
         start += size
     n = b * r
     if n:
-        with torch.cuda.device(rois.device):
+        with native.device(rois.device):
             status = native.library().seam_roi_align_adjoint(
                 *[native.ptr(g) for g in levels], *[h for h, _ in level_shapes],
                 *[w for _, w in level_shapes], *[float(s) for s in spatial_scales],

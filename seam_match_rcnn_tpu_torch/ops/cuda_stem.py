@@ -61,7 +61,7 @@ def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
     req(wt.device == xb.device and bias.device == xb.device, name,
         "weights must be on x's device")
     out = torch.empty((b, 64, h // 4, w_ // 4), dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
+    with native.device(x.device):
         status = native.library().seam_stem_forward(
             native.ptr(xb), native.ptr(wt), native.ptr(bias), native.ptr(out),
             b, h, w_, native.stream(x.device))

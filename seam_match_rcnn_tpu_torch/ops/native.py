@@ -13,6 +13,7 @@ Every C entry point returns ``cudaGetLastError()`` right after its launch;
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,8 +55,8 @@ _SIGNATURES = {
     "seam_roi_align_patch_int8": [_P] * 4 + [_I] * 8 + [_P] * 5 + [_I] * 6 + [_P],
     # seqs, mask, 11 weight pointers, out, S, T, stream
     "seam_nlb_aggregate": [_P] * 14 + [_I, _I, _P],
-    # x, y, v, c0, out, Q, G, C, stream
-    "seam_pairwise_scores": [_P] * 5 + [_I, _I, _I, _P],
+    # x, y, w, b, out, Q, G, C, tile rows, stream
+    "seam_pairwise_scores": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -143,12 +144,27 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's data pointer as a launch takes it (ctypes converts the int
+    for a ``c_void_p`` argument)."""
+    return t.data_ptr()
 
 
-def stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` (a ``torch.device`` with
+    its index), as the raw handle a launch takes.  The private call is the
+    one Triton's launcher makes: ``torch.cuda.current_stream(device)`` builds
+    a Stream object, which costs several microseconds a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def device(dev):
+    """The context in which to launch on ``dev``: none when ``dev`` is the
+    current device (the common case, and entering ``torch.cuda.device``
+    costs microseconds a launch), else ``torch.cuda.device(dev)``."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def require(cond: bool, name: str, what: str) -> None:

@@ -16,7 +16,7 @@ import torch
 
 from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
-from seam_match_rcnn_tpu_torch.ops.roi_align import (multilevel_roi_align,
+from seam_match_rcnn_tpu_torch.ops.roi_align import (fpn_level_indices, multilevel_roi_align,
                                                       multilevel_roi_align_adjoint)
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 
@@ -102,6 +102,48 @@ def _k5_rois(rng, b, n, kind):
     bw = np.exp(rng.uniform(np.log(2), np.log(600), (b, n)))
     bh = bw * np.exp(rng.uniform(np.log(0.3), np.log(3), (b, n)))
     return np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], -1).astype(np.float32)
+
+
+def _k2_border_rois(rng):
+    """Three images of 9 rois over K5_LEVELS' 384x768 canvas: the border
+    class of K5's tests (degenerate, tiny, on and beyond the canvas edges,
+    the whole canvas) and one mixed roi; 9 rois that all map to P2; 9 that
+    all map to P5.  N = 27 is odd."""
+    side = rng.uniform(4, 60, 9)
+    x1, y1 = rng.uniform(-10, 760, 9), rng.uniform(-10, 380, 9)
+    small = np.stack([x1, y1, x1 + side, y1 + side * rng.uniform(0.5, 2, 9)], -1)
+    x1, y1 = rng.uniform(-100, 300, 9), rng.uniform(-100, 50, 9)
+    large = np.stack([x1, y1, x1 + rng.uniform(560, 900, 9), y1 + rng.uniform(400, 560, 9)], -1)
+    borders = np.concatenate([_k5_rois(rng, 1, 8, "borders")[0], _k5_rois(rng, 1, 1, "mix")[0]])
+    return np.stack([borders, small, large]).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype,o,c", [(torch.float32, 7, 64), (torch.float32, 14, 36),
+                                       (torch.bfloat16, 7, 96), (torch.bfloat16, 14, 8)])
+def test_roi_align_kernel_on_border_rois(card, dtype, o, c):
+    rng = np.random.RandomState(40 + o + c)
+    rois = _k2_border_rois(rng)
+    levels = fpn_level_indices(torch.from_numpy(rois))
+    assert (levels[1] == 0).all() and (levels[2] == 3).all()
+    feats = [torch.from_numpy(rng.randn(3, c, h, w).astype(np.float32)).to(card, dtype)
+             .contiguous(memory_format=torch.channels_last) for h, w in K5_LEVELS]
+    rois = torch.from_numpy(rois).to(card)
+    n0 = cuda_roi_align.roi_align.launches
+    got = cuda_roi_align.roi_align(feats, rois, o)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align.launches == n0 + 1
+    want = multilevel_roi_align(feats, rois, o)
+    assert got.shape == want.shape == (27, c, o, o) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if dtype == torch.float32:
+        # same geometry arithmetic (no FMA contraction on either side); only
+        # the order of the f32 sums differs
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        # f32 sums rounded to bf16 once: one bf16 ulp, rarely
+        err = np.abs(got - want)
+        assert np.all(err <= _bf16_ulp(want) + 1e-6) and (err > 0).mean() < 1e-3
 
 
 @pytest.mark.parametrize("dtype,o,kind,n", [
@@ -261,19 +303,43 @@ def test_nlb_kernel_matches_plain(card, s, t):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("q,g", [(1, 16), (1, 1000), (1000, 1000), (77, 130)])
-def test_pairwise_kernel_matches_plain(card, q, g):
+PAIRWISE_CASES = [
+    (1, 16, "near"), (1, 1000, "near"), (1000, 1000, "near"), (77, 130, "near"),
+    # each tile the wrapper picks (16 and 64 rows) and both sides of the
+    # boundary between them, against ragged galleries
+    (1, 67, "exact"), (3, 130, "exact"), (16, 1000, "exact"), (17, 77, "near"),
+    (64, 333, "exact"), (65, 1000, "near"), (128, 333, "exact"), (129, 130, "near"),
+    (1000, 999, "exact"), (3, 130, "x10"), (65, 1000, "x10"), (1000, 1000, "x10")]
+
+
+@pytest.mark.parametrize("q,g,kind", [
+    pytest.param(q, g, k, id=f"{q}-{g}" if k == "near" else f"{q}-{g}-{k}")
+    for q, g, k in PAIRWISE_CASES])
+def test_pairwise_kernel_matches_plain(card, q, g, kind):
     rng = np.random.RandomState(q + g)
     x = rng.randn(q, 256).astype(np.float32)
     y = rng.randn(g, 256).astype(np.float32)
-    y[: min(q, g)] = x[: min(q, g)] + 1e-3 * rng.randn(min(q, g), 256)  # near-duplicates
+    m = min(q, g)
+    if kind == "exact":  # x_i == y_j: d = c0 up to the rounding of a + g - 2 cross
+        y[:m] = x[:m]
+        y[m:2 * m] = x[:min(m, g - m)] + 1e-3 * rng.randn(min(m, g - m), 256)
+    else:
+        y[:m] = x[:m] + 1e-3 * rng.randn(m, 256)  # near-duplicates
+    scale = 10.0 if kind == "x10" else 1.0
+    x, y = x * scale, y * scale
     w = (rng.randn(2, 256) * 0.05).astype(np.float32)
     b = rng.randn(2).astype(np.float32)
     args = [torch.from_numpy(a).to(card) for a in (x, y, w, b)]
+    n0 = cuda_kernels.pairwise_scores.launches
     got = cuda_kernels.pairwise_scores(*args)
     torch.cuda.synchronize()
+    assert cuda_kernels.pairwise_scores.launches == n0 + 1
     want = pairwise_match_scores(*args)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    # a_i, g_j and the cross term are f32 sums of 256 terms of size |x|^2 |v|
+    # whose rounding (in another order on each side) grows with |x|^2: at
+    # unit scale 1e-5, at x10 scale 100x that
+    tol = 1e-5 * scale ** 2
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
@@ -306,3 +372,37 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):  # K7 takes int8 levels only
         cuda_roi_align.roi_align_patch_int8(cl, torch.ones((4, 8), device=card), rois, 7,
                                             torch.float32)
+    # K2: 16-byte channel vectors, the sample tables, 32-bit indexing, alignment
+    cl12 = [torch.zeros((1, 12, 8, 8), device=card, dtype=torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for _ in range(4)]
+    with pytest.raises(ValueError):  # 12 bf16 channels: not a multiple of 8
+        cuda_roi_align.roi_align(cl12, rois, 7)
+    with pytest.raises(ValueError):  # more channels than one block's threads take
+        cuda_roi_align.roi_align([torch.zeros((1, 1028, 2, 2), device=card)
+                                  .contiguous(memory_format=torch.channels_last)] * 4, rois, 7)
+    with pytest.raises(ValueError):  # 33 x 2 sample coordinates per axis, above 64
+        cuda_roi_align.roi_align(cl, rois, 33)
+    base = torch.zeros(8 * 8 * 8 + 1, device=card)
+    shifted = base[1:].view(1, 8, 8, 8).permute(0, 3, 1, 2)  # channels_last, 4 bytes off
+    with pytest.raises(ValueError):
+        cuda_roi_align.roi_align([shifted] + cl[1:], rois, 7)
+    big = torch.empty((1, 8, 16384, 16385), device=card, dtype=torch.bfloat16,
+                      memory_format=torch.channels_last)  # H x W x C >= 2^31
+    with pytest.raises(ValueError):
+        cuda_roi_align.roi_align([big] + [f.to(torch.bfloat16) for f in cl[1:]], rois, 7)
+    del big
+    # K4: C a multiple of 4, 16-byte aligned operands, the grid's rows
+    x6 = torch.zeros((2, 6), device=card)
+    with pytest.raises(ValueError):
+        cuda_kernels.pairwise_scores(x6, x6, torch.zeros((2, 6), device=card),
+                                     torch.zeros(2, device=card))
+    x8 = torch.zeros((2, 8), device=card)
+    w8 = torch.zeros(17, device=card)[1:].view(2, 8)  # contiguous, 4 bytes off
+    with pytest.raises(ValueError):
+        cuda_kernels.pairwise_scores(x8, x8, w8, torch.zeros(2, device=card))
+    with pytest.raises(ValueError):
+        cuda_kernels.pairwise_scores(torch.zeros((cuda_kernels.PAIRWISE_MAX_Q + 1, 4),
+                                                 device=card),
+                                     torch.zeros((1, 4), device=card),
+                                     torch.zeros((2, 4), device=card),
+                                     torch.zeros(2, device=card))
