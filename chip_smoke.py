@@ -238,25 +238,35 @@ def phase_kernels(dev, results):
     rng = np.random.RandomState(0)
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
 
-    # K1 at the serving batch: [11, 3, 800, 1344] bf16 -> [11, 64, 200, 336]
-    x = t(rng.randn(11, 3, 800, 1344), torch.bfloat16)
+    # K1 at the serving batch: [11, 3, 800, 1344] -> [11, 64, 200, 336] bf16,
+    # on bf16 input and on the f32 input the model hands it (the kernel
+    # rounds it as it loads it); cuDNN's conv + relu + max_pool2d in bf16 (of
+    # the input cast to bf16) is the library yardstick
+    x32 = t(rng.randn(11, 3, 800, 1344))
     cw, sc = t(rng.randn(64, 3, 7, 7) * 0.1), t(0.5 + rng.rand(64))
     sh = t(rng.randn(64) * 0.1)
-    got = cuda_stem.fused_stem(x, cw, sc, sh, torch.bfloat16)
-    want = cuda_stem.stem_plain(x, cw, sc, sh, torch.bfloat16)
-    err, tol, ok = check_bf16(got, want)
-    ms = median_ms(lambda: cuda_stem.fused_stem(x, cw, sc, sh, torch.bfloat16), 10)
-    pms = median_ms(lambda: cuda_stem.stem_plain(x, cw, sc, sh, torch.bfloat16), 10)
     wb, bias = cuda_stem.fold_stem_weights(cw, sc, sh)
     bias = bias.to(torch.bfloat16)
-    lms = median_ms(lambda: F.max_pool2d(F.relu(F.conv2d(x, wb, bias, 2, 3)), 3, 2, 1), 10)
-    b_ms, b_by = bound(nbytes(x, wb, got) + 64 * 4,
-                       2 * 11 * 400 * 672 * 64 * 147, "bf16")
-    results["fused_stem"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, ok=ok, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lms, cases=[dict(
-                                     shape="[11,3,800,1344] bf16", max_abs_err=err, tol=tol,
-                                     ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b_ms)])
-    del x, got, want
+    cases, all_ok = [], True
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = x32.to(dtype)
+        got = cuda_stem.fused_stem(x, cw, sc, sh, torch.bfloat16)
+        want = cuda_stem.stem_plain(x, cw, sc, sh, torch.bfloat16)
+        err, tol, ok = check_bf16(got, want)
+        ms = median_ms(lambda: cuda_stem.fused_stem(x, cw, sc, sh, torch.bfloat16), 10)
+        pms = median_ms(lambda: cuda_stem.stem_plain(x, cw, sc, sh, torch.bfloat16), 10)
+        lms = median_ms(lambda: F.max_pool2d(F.relu(F.conv2d(x.to(torch.bfloat16), wb, bias, 2,
+                                                             3)), 3, 2, 1), 10)
+        b_ms, b_by = bound(nbytes(x, wb, got) + 64 * 4, 2 * 11 * 400 * 672 * 64 * 147, "bf16")
+        cases.append(dict(shape=f"[11,3,800,1344] {label} -> bf16", max_abs_err=err, tol=tol,
+                          ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=b_by))
+        all_ok &= ok
+        del x, got, want
+    del x32
+    results["fused_stem"] = dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                                 ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"], ok=all_ok,
+                                 bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
+                                 library_ms=cases[0]["library_ms"], cases=cases)
 
     # K2: serving box branch 11 x 4000 rois at 7x7 and match branch 11 x 100
     # at 14x14; training box branch 8 x 512 at 7x7 and mask branch 8 x 128 at
@@ -390,9 +400,10 @@ def phase_kernels_patch(dev, rng, gen, results):
     """K6 (bf16 and f32 features) and K7 (the bf16 pyramid quantized to
     int8, bf16 out) at K2's serving shapes, and K6 (bf16) at the training
     shapes of the "pallas" step, 6 window-overflowing rois planted in each
-    image; the plain int8 quantization is timed beside K7.  Bytes count the
-    cells with a tap, the rois, the per-roi geometry the kernel reads
-    (level, origin and 8 f32), the scales and the output."""
+    image; the plain int8 quantization is timed beside K7.  The kernels
+    compute the window geometry themselves from the rois, so their times
+    include it.  Bytes count the cells with a tap, the rois, the scales and
+    the output."""
     k6, k7 = [], []
     for b, n, o, reps, serving in ((11, 4000, 7, 10, True), (11, 100, 14, 20, True),
                                    (8, 512, 7, 10, False), (8, 128, 14, 20, False)):
@@ -400,7 +411,7 @@ def phase_kernels_patch(dev, rng, gen, results):
         clamped = int(patch.footprint_clamp_mask(rois, PYRAMID, output_size=o).sum())
         taps, cells = patch_work(rois, o)
         taps *= 256
-        small = nbytes(rois) + b * n * (3 * 4 + 8 * 4)
+        small = nbytes(rois)
         base = [torch.randn((b, 256, h, w), generator=gen, device=dev) for h, w in PYRAMID]
         dtypes = (((torch.bfloat16, "bf16"), (torch.float32, "f32")) if serving
                   else ((torch.bfloat16, "bf16"),))

@@ -57,58 +57,15 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_SAMPLES = 64;  // o * ratio along one axis
 
-struct Pyramid {
-  const void* feat[4];
-  int h[4];
-  int w[4];
-  float scale[4];
-};
-
-// 16 bytes of channels, widened to f32 and back
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* v) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    uint4 q;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = q;
-  }
-};
-
 // blockDim = (C / V channel vectors, bins handled at once)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-roi_align_kernel(Pyramid pyr, const float* __restrict__ rois, T* __restrict__ out, int R,
+roi_align_kernel(seam::Pyramid pyr, const float* __restrict__ rois, T* __restrict__ out, int R,
                  int C, int O, int ratio) {
   __shared__ int s_lo[2][MAX_SAMPLES], s_hi[2][MAX_SAMPLES];
   __shared__ float s_wlo[2][MAX_SAMPLES], s_whi[2][MAX_SAMPLES];
   __shared__ bool s_in[2][MAX_SAMPLES];
-  constexpr int V = Vec<T>::N;
+  constexpr int V = seam::Vec<T>::N;
 
   const int n = blockIdx.x;
   const float* roi = rois + (size_t)n * 4;
@@ -156,10 +113,10 @@ roi_align_kernel(Pyramid pyr, const float* __restrict__ rois, T* __restrict__ ou
         const float w00 = wylo * wxlo, w01 = wylo * wxhi, w10 = wyhi * wxlo,
                     w11 = wyhi * wxhi;
         float v00[V], v01[V], v10[V], v11[V];
-        Vec<T>::load(f + (ylo + xlo) * C, v00);
-        Vec<T>::load(f + (ylo + xhi) * C, v01);
-        Vec<T>::load(f + (yhi + xlo) * C, v10);
-        Vec<T>::load(f + (yhi + xhi) * C, v11);
+        seam::Vec<T>::load(f + (ylo + xlo) * C, v00);
+        seam::Vec<T>::load(f + (ylo + xhi) * C, v01);
+        seam::Vec<T>::load(f + (yhi + xlo) * C, v10);
+        seam::Vec<T>::load(f + (yhi + xhi) * C, v11);
 #pragma unroll
         for (int k = 0; k < V; ++k)
           acc[k] += v00[k] * w00 + v01[k] * w01 + v10[k] * w10 + v11[k] * w11;
@@ -167,14 +124,14 @@ roi_align_kernel(Pyramid pyr, const float* __restrict__ rois, T* __restrict__ ou
     }
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = acc[k] / count;
-    Vec<T>::store(o + bin * C, acc);
+    seam::Vec<T>::store(o + bin * C, acc);
   }
 }
 
 template <typename T>
-int launch(Pyramid pyr, const void* rois, void* out, int N, int R, int C, int O, int ratio,
+int launch(seam::Pyramid pyr, const void* rois, void* out, int N, int R, int C, int O, int ratio,
            void* stream) {
-  const int vecs = C / Vec<T>::N;
+  const int vecs = C / seam::Vec<T>::N;
   const dim3 block((unsigned)vecs, (unsigned)(vecs < THREADS ? THREADS / vecs : 1));
   roi_align_kernel<T><<<(unsigned)N, block, 0, (cudaStream_t)stream>>>(
       pyr, (const float*)rois, (T*)out, R, C, O, ratio);
@@ -189,7 +146,7 @@ extern "C" int seam_roi_align_forward(
     float s0, float s1, float s2, float s3,
     const void* rois, void* out, int N, int R, int C, int O, int ratio, int is_bf16,
     void* stream) {
-  Pyramid pyr = {{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3}};
+  seam::Pyramid pyr = {{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}, {s0, s1, s2, s3}};
   if (O < 1 || ratio < 1 || O * ratio > MAX_SAMPLES || C <= 0 || C % (is_bf16 ? 8 : 4) != 0 ||
       C / (is_bf16 ? 8 : 4) > THREADS) {
     return (int)cudaErrorInvalidValue;

@@ -117,8 +117,9 @@ class MatchRCNN(nn.Module):
 
     def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """images [B, 3, H, W] in [0, 1] -> (P2, ..., P6)."""
-        x = normalize(images.to(torch.float32), self.cfg.transform)
-        return self.backbone(x.to(getattr(torch, self.cfg.compute_dtype)))
+        # f32 into the backbone: the fused stem rounds it to bf16 as it loads
+        # it, and the XLA stem's conv1 casts it to the compute dtype
+        return self.backbone(normalize(images.to(torch.float32), self.cfg.transform))
 
     def _grid_anchors(self, feats) -> Tuple[torch.Tensor, ...]:
         canvas = (feats[0].shape[2] * 4, feats[0].shape[3] * 4)

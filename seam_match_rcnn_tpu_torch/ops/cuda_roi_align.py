@@ -33,8 +33,10 @@ from . import roi_align_patch as patch
 from .roi_align import SPATIAL_SCALES, multilevel_roi_align, multilevel_roi_align_adjoint
 
 
-ROI_ALIGN_THREADS = 256  # K2's block; one thread per 16 bytes of a pixel's channels
+ROI_ALIGN_THREADS = 256  # K2/K6/K7's block; one thread per 16 bytes of a cell's channels
 ROI_ALIGN_MAX_SAMPLES = 64  # K2's sample coordinates per axis, output_size x ratio
+ROI_PATCH_MAX_OUT = 16  # K6/K7's tap tables: output sizes up to 16
+ROI_PATCH_MAX_RATIO = 4  # and 2 x ratio taps per bin and axis
 
 
 def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
@@ -54,7 +56,8 @@ def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size:
 
 
 def _check_levels(name, features, rois, spatial_scales, dtypes):
-    """The input checks of the forward kernels (K2, K6, K7) -> (B, R, C)."""
+    """The input checks of the forward kernels (K2, K6, K7), which read 16
+    bytes of a cell's channels at a time with 32-bit indices -> (B, R, C)."""
     req = native.require
     req(rois.device.type == "cuda", name, f"rois on {rois.device}, not cuda")
     req(len(features) == 4 and len(spatial_scales) == 4, name, "needs the 4 levels P2..P5")
@@ -70,6 +73,13 @@ def _check_levels(name, features, rois, spatial_scales, dtypes):
             "every level must be [B, C, H, W] on the rois' device in one dtype")
         req(f.is_contiguous(memory_format=torch.channels_last), name,
             "features must be channels_last")
+    vec = 16 // features[0].element_size()  # channels a thread loads at once
+    req(c > 0 and c % vec == 0 and c // vec <= ROI_ALIGN_THREADS, name,
+        f"C = {c} must be a positive multiple of {vec}, at most {ROI_ALIGN_THREADS * vec}")
+    req(all(f.shape[2] * f.shape[3] * c < 2**31 for f in features), name,
+        "a level's H x W x C must be below 2^31 (32-bit indexing)")
+    req(all(f.data_ptr() % 16 == 0 for f in features), name,
+        "every level must be 16-byte aligned")
     return b, r, c
 
 
@@ -81,16 +91,9 @@ def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
     req = native.require
     dtype = features[0].dtype
     b, r, c = _check_levels(name, features, rois, spatial_scales, (torch.float32, torch.bfloat16))
-    vec = 16 // features[0].element_size()  # channels a thread loads at once
-    req(c > 0 and c % vec == 0 and c // vec <= ROI_ALIGN_THREADS, name,
-        f"C = {c} must be a positive multiple of {vec}, at most {ROI_ALIGN_THREADS * vec}")
     req(output_size >= 1 and sampling_ratio >= 1
         and output_size * sampling_ratio <= ROI_ALIGN_MAX_SAMPLES, name,
         f"output_size x sampling_ratio must be in [1, {ROI_ALIGN_MAX_SAMPLES}]")
-    req(all(f.shape[2] * f.shape[3] * c < 2**31 for f in features), name,
-        "a level's H x W x C must be below 2^31 (32-bit indexing)")
-    req(all(f.data_ptr() % 16 == 0 for f in features), name,
-        "every level must be 16-byte aligned")
     n = b * r
     out = torch.empty((n, output_size, output_size, c), dtype=dtype, device=rois.device)
     if n:
@@ -114,8 +117,10 @@ def roi_align_patch(features: Sequence[torch.Tensor], rois: torch.Tensor, output
                     spatial_scales: Tuple[float, ...] = SPATIAL_SCALES) -> torch.Tensor:
     """K6, the patch-window RoIAlign.  features: P2..P5 as [B, C, H_l, W_l];
     rois [B, R, 4] -> [B*R, C, out, out] in the features' dtype.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, which
-    needs channels_last features in f32 or bf16 and f32 rois.  When a level
+    tensors take the plain version; CUDA tensors launch the kernel (one
+    launch, the window geometry computed in it), which needs channels_last,
+    16-byte aligned features in f32 or bf16 with C a multiple of 4 (f32) or
+    8 (bf16), f32 rois, output_size <= 16 and sampling_ratio <= 4.  When a level
     requires a gradient, the call goes through ``RoIAlignFunction``, whose
     backward is K5 (the exact adjoint, as the JAX package's trainable
     wrapper pairs this forward with it)."""
@@ -135,7 +140,8 @@ def roi_align_patch_int8(features: Sequence[torch.Tensor], scales: torch.Tensor,
     """K7, the patch-window RoIAlign over an int8 pyramid: features P2..P5
     [B, C, H_l, W_l] int8 and scales [4, C] f32 from
     ``roi_align_patch.quantize_features_int8``; rois [B, R, 4] -> [B*R, C,
-    out, out] in ``out_dtype`` (f32 or bf16).  No gradient."""
+    out, out] in ``out_dtype`` (f32 or bf16).  The kernel needs C a multiple
+    of 16 and the wrapper checks of ``roi_align_patch``.  No gradient."""
     return _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales,
                           scales, out_dtype)
 
@@ -154,8 +160,9 @@ def _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales, 
     dtype = features[0].dtype
     b, r, c = _check_levels(name, features, rois, spatial_scales,
                             (torch.float32, torch.bfloat16) if scales is None else (torch.int8,))
-    req(1 <= output_size <= 16 and 1 <= sampling_ratio <= 4, name,
-        "output_size must be in [1, 16] and sampling_ratio in [1, 4]")
+    req(1 <= output_size <= ROI_PATCH_MAX_OUT and 1 <= sampling_ratio <= ROI_PATCH_MAX_RATIO,
+        name, f"output_size must be in [1, {ROI_PATCH_MAX_OUT}] and sampling_ratio in "
+        f"[1, {ROI_PATCH_MAX_RATIO}]")
     if scales is None:
         out_dtype = dtype
     else:
@@ -166,17 +173,10 @@ def _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales, 
     n = b * r
     out = torch.empty((n, output_size, output_size, c), dtype=out_dtype, device=rois.device)
     if n:
-        # the geometry as XLA computes it outside the TPU kernel
-        lvl, y0, x0, geom = patch.patch_geometry(
-            rois.reshape(n, 4), [tuple(f.shape[2:]) for f in features], spatial_scales,
-            output_size)
-        lvl = lvl.to(torch.int32).contiguous()
-        origin = torch.stack([y0, x0], dim=1).to(torch.int32).contiguous()
-        geom = geom.contiguous()
         lib = native.library()
         args = [*[native.ptr(f) for f in features], *[f.shape[2] for f in features],
-                *[f.shape[3] for f in features], native.ptr(lvl), native.ptr(origin),
-                native.ptr(geom)]
+                *[f.shape[3] for f in features], *[float(s) for s in spatial_scales],
+                native.ptr(rois)]
         with native.device(rois.device):
             if scales is None:
                 status = lib.seam_roi_align_patch(

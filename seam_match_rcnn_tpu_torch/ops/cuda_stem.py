@@ -15,6 +15,9 @@ import torch.nn.functional as F
 
 from . import native
 
+STEM_TAPS = 3 * 7 * 7
+STEM_WEIGHT_ROW = 168  # the kernel's weight row: K = 147 taps padded with zeros
+
 
 def fold_stem_weights(conv_w: torch.Tensor, bn_scale: torch.Tensor,
                       bn_shift: torch.Tensor):
@@ -37,10 +40,13 @@ def stem_plain(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
 
 def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
                bn_shift: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-    """x [B, 3, H, W] (normalized; H, W multiples of 4) -> NCHW [B, 64, H/4,
-    W/4] in ``out_dtype``.  CPU tensors take the plain version.  Forward
-    only, as the TPU kernel: it raises when its input or weights need a
-    gradient (the backbone keeps the stem frozen, ``models/resnet.py``)."""
+    """x [B, 3, H, W] f32 or bf16 (normalized; H, W multiples of 4) -> NCHW
+    [B, 64, H/4, W/4] in ``out_dtype`` (bf16, or f32 holding the bf16-rounded
+    value).  The kernel rounds f32 input to bf16 as it loads it, so f32 and
+    bf16 input give the same output.  CPU tensors take the plain version.
+    Forward only, as the TPU kernel: it raises when its input or weights
+    need a gradient (the backbone keeps the stem frozen,
+    ``models/resnet.py``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, conv_w, bn_scale, bn_shift)):
         raise RuntimeError("fused_stem has no backward: keep the stem frozen "
                            "or use stem_backend='xla'")
@@ -50,24 +56,29 @@ def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
     req = native.require
     req(x.device.type == "cuda", name, f"x on {x.device}, not cuda")
     req(x.dim() == 4 and x.shape[1] == 3, name, f"x must be [B, 3, H, W], got {tuple(x.shape)}")
+    req(x.dtype in (torch.float32, torch.bfloat16), name, f"x dtype {x.dtype}")
+    req(out_dtype in (torch.float32, torch.bfloat16), name, f"out_dtype {out_dtype}")
     b, _, h, w_ = x.shape
     req(h % 4 == 0 and w_ % 4 == 0 and h > 0 and w_ > 0 and b > 0, name,
         f"H, W must be positive multiples of 4, got {h}x{w_}")
+    req(3 * h * w_ < 2**31, name, "an image's 3 x H x W must be below 2^31")
     req(tuple(conv_w.shape) == (64, 3, 7, 7), name, "conv1 weight must be [64, 3, 7, 7]")
     wf, bias = fold_stem_weights(conv_w, bn_scale, bn_shift)
-    wt = wf.permute(1, 2, 3, 0).reshape(147, 64).contiguous()  # [(ci, ky, kx), cout]
+    # [cout, (ci, ky, kx)], K padded with zero weights to the kernel's row of 168
+    wt = F.pad(wf.reshape(64, STEM_TAPS), (0, STEM_WEIGHT_ROW - STEM_TAPS))
     bias = bias.contiguous()
-    xb = x.to(torch.bfloat16).contiguous()
-    req(wt.device == xb.device and bias.device == xb.device, name,
+    x = x.contiguous()
+    req(wt.device == x.device and bias.device == x.device, name,
         "weights must be on x's device")
-    out = torch.empty((b, 64, h // 4, w_ // 4), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, 64, h // 4, w_ // 4), dtype=out_dtype, device=x.device)
     with native.device(x.device):
         status = native.library().seam_stem_forward(
-            native.ptr(xb), native.ptr(wt), native.ptr(bias), native.ptr(out),
-            b, h, w_, native.stream(x.device))
+            native.ptr(x), native.ptr(wt), native.ptr(bias), native.ptr(out), b, h, w_,
+            int(x.dtype == torch.float32), int(out_dtype == torch.float32),
+            native.stream(x.device))
     native.check(status, name)
     fused_stem.launches += 1
-    return out.to(out_dtype)
+    return out
 
 
 fused_stem.launches = 0

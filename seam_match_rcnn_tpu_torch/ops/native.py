@@ -37,8 +37,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w, bias, out, B, H, W, stream
-    "seam_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w, bias, out, B, H, W, x is f32, out is f32, stream
+    "seam_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # 4 level pointers, 4 heights, 4 widths, 4 scales, rois, out,
     # N, R, C, output_size, sampling_ratio, is_bf16, stream
     "seam_roi_align_forward": [_P] * 4 + [_I] * 8 + [_F] * 4
@@ -47,12 +47,12 @@ _SIGNATURES = {
     # cotangent, rois, N, R, C, output_size, sampling_ratio, stream
     "seam_roi_align_adjoint": [_P] * 4 + [_I] * 8 + [_F] * 4
     + [_P, _P, _I, _I, _I, _I, _I, _P],
-    # 4 level pointers, 4 heights, 4 widths, lvl, origin, geom, out,
+    # 4 level pointers, 4 heights, 4 widths, 4 scales, rois, out,
     # N, R, C, output_size, sampling_ratio, is_bf16, stream
-    "seam_roi_align_patch": [_P] * 4 + [_I] * 8 + [_P] * 4 + [_I] * 6 + [_P],
-    # 4 int8 level pointers, 4 heights, 4 widths, lvl, origin, geom, scales,
-    # out, N, R, C, output_size, sampling_ratio, out_bf16, stream
-    "seam_roi_align_patch_int8": [_P] * 4 + [_I] * 8 + [_P] * 5 + [_I] * 6 + [_P],
+    "seam_roi_align_patch": [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2 + [_I] * 6 + [_P],
+    # 4 int8 level pointers, 4 heights, 4 widths, 4 scales, rois, channel
+    # scales, out, N, R, C, output_size, sampling_ratio, out_bf16, stream
+    "seam_roi_align_patch_int8": [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3 + [_I] * 6 + [_P],
     # seqs, mask, 11 weight pointers, out, S, T, stream
     "seam_nlb_aggregate": [_P] * 14 + [_I, _I, _P],
     # x, y, w, b, out, Q, G, C, tile rows, stream

@@ -36,17 +36,25 @@ def _bf16_ulp(v):
     return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(v), 1e-30))) - 7)
 
 
-@pytest.mark.parametrize("b,h,w", [(1, 64, 96), (2, 200, 336)])
-def test_stem_kernel_matches_plain(card, b, h, w):
+@pytest.mark.parametrize("b,h,w,in_dtype,out_dtype", [
+    (1, 64, 96, torch.float32, torch.bfloat16), (2, 200, 336, torch.float32, torch.bfloat16),
+    # pooled sizes no 8x16 tile divides, both input and both output types
+    (1, 68, 100, torch.float32, torch.bfloat16), (1, 68, 100, torch.bfloat16, torch.float32),
+    (2, 200, 336, torch.bfloat16, torch.bfloat16), (2, 200, 336, torch.float32, torch.float32),
+    (1, 800, 1344, torch.float32, torch.bfloat16), (1, 800, 1344, torch.bfloat16, torch.float32)])
+def test_stem_kernel_matches_plain(card, b, h, w, in_dtype, out_dtype):
     rng = np.random.RandomState(h)
-    x = torch.from_numpy(rng.randn(b, 3, h, w).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.randn(b, 3, h, w).astype(np.float32)).to(card, in_dtype)
     cw = torch.from_numpy((rng.randn(64, 3, 7, 7) * 0.2).astype(np.float32)).to(card)
     scale = torch.from_numpy((0.5 + rng.rand(64)).astype(np.float32)).to(card)
     shift = torch.from_numpy(rng.randn(64).astype(np.float32)).to(card)
     n0 = cuda_stem.fused_stem.launches
-    got = cuda_stem.fused_stem(x, cw, scale, shift, torch.bfloat16)
+    got = cuda_stem.fused_stem(x, cw, scale, shift, out_dtype)
     torch.cuda.synchronize()
     assert cuda_stem.fused_stem.launches == n0 + 1
+    assert got.dtype == out_dtype and got.shape == (b, 64, h // 4, w // 4)
+    # an f32 output holds the bf16-rounded value
+    assert torch.equal(got, got.to(torch.bfloat16).to(out_dtype))
     want = cuda_stem.stem_plain(x, cw, scale, shift, torch.bfloat16)
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     # same bf16 operands, f32 sums in another order: a value may round to
@@ -259,6 +267,70 @@ def test_roi_align_patch_int8_kernel_matches_plain(card, o, out_dtype):
     assert torch.equal(got, want)
 
 
+def _k6_border_rois(rng, b):
+    """Per image, over K5_LEVELS' 384x768 canvas, at each level (square rois
+    of side 40, 150, 300 and 520 map to P2..P5): one ending on the canvas's
+    last row and column, one reaching beyond them, and one whose window
+    starts at column -1 by the 8-aligned rule (first cell 1..6 of its level);
+    then the 4 window-overflowing slivers of _k6_rois."""
+    out = []
+    for _ in range(b):
+        rows = []
+        for lv, side in enumerate((40.0, 150.0, 300.0, 520.0)):
+            s = side * rng.uniform(0.97, 1.03)
+            u, y = rng.uniform(1.0, 6.5) * 4 * 2 ** lv, rng.uniform(-20, 384 - s / 2)
+            rows += [[768 - s, 384 - s, 768, 384],
+                     [768 - s / 2, 384 - s / 2, 768 + s / 2, 384 + s / 2],
+                     [u, y, u + s, y + s]]
+        out.append(rows + [[100, 40, 162, 230], [400, 100, 462, 290],
+                           [40, 100, 245, 158], [300, 300, 505, 358]])
+    rois = torch.from_numpy(np.asarray(out, np.float32))
+    lvl, y0, x0, _ = patch.patch_geometry(rois.reshape(-1, 4), K5_LEVELS, (0.25, 0.125, 0.0625,
+                                                                           0.03125), 7)
+    assert set(lvl.tolist()) == {0, 1, 2, 3}
+    assert set(lvl[(x0 == -1) & (rois.reshape(-1, 4)[:, 0] > 0)].tolist()) == {0, 1, 2, 3}
+    assert patch.footprint_clamp_mask(rois, K5_LEVELS).sum() >= 4 * b
+    return rois
+
+
+@pytest.mark.parametrize("dtype,o,c", [
+    (torch.bfloat16, 7, 8), (torch.bfloat16, 14, 64), (torch.bfloat16, 7, 256),
+    (torch.float32, 14, 8), (torch.float32, 7, 64), (torch.float32, 14, 256),
+    (torch.int8, 7, 64), (torch.int8, 14, 256)])
+def test_roi_align_patch_kernels_on_border_rois(card, dtype, o, c):
+    """K6 (bf16, f32) and K7 (int8, which takes C a multiple of 16) on rois
+    at every level's last row and column, at the 8-aligned window start and
+    overflowing the window."""
+    rng = np.random.RandomState(50 + o + c)
+    rois = _k6_border_rois(rng, 2).to(card)
+    base = [torch.from_numpy(rng.randn(2, c, h, w).astype(np.float32)).to(card)
+            .contiguous(memory_format=torch.channels_last) for h, w in K5_LEVELS]
+    if dtype == torch.int8:
+        q, scales = patch.quantize_features_int8([f.to(torch.bfloat16) for f in base])
+        out_dtype = torch.bfloat16 if o == 7 else torch.float32
+        n0 = cuda_roi_align.roi_align_patch_int8.launches
+        got = cuda_roi_align.roi_align_patch_int8(q, scales, rois, o, out_dtype)
+        torch.cuda.synchronize()
+        assert cuda_roi_align.roi_align_patch_int8.launches == n0 + 1
+        want = patch.roi_align_patch(q, rois, o, scales=scales, out_dtype=out_dtype)
+    else:
+        feats = [f.to(dtype) for f in base]
+        n0 = cuda_roi_align.roi_align_patch.launches
+        got = cuda_roi_align.roi_align_patch(feats, rois, o)
+        torch.cuda.synchronize()
+        assert cuda_roi_align.roi_align_patch.launches == n0 + 1
+        want = patch.roi_align_patch(feats, rois, o)
+    assert got.shape == want.shape == (rois.shape[0] * rois.shape[1], c, o, o)
+    assert got.dtype == want.dtype and got.is_contiguous(memory_format=torch.channels_last)
+    if dtype == torch.float32:
+        # the same rounded operator entries; only the order of the f32 sums differs
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    else:
+        # bf16: exact products summed in the plain version's order; int8:
+        # integer sums and the same dequantization
+        assert torch.equal(got, want)
+
+
 def test_roi_align_patch_backward_on_the_card(card):
     """The "pallas" backend's autograd: K6 forward, K5 backward (the exact
     adjoint), as the JAX package's pallas_roi_align_trainable."""
@@ -372,24 +444,45 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):  # K7 takes int8 levels only
         cuda_roi_align.roi_align_patch_int8(cl, torch.ones((4, 8), device=card), rois, 7,
                                             torch.float32)
+    with pytest.raises(ValueError):  # 8 int8 channels: K7 loads 16 at once
+        cuda_roi_align.roi_align_patch_int8(q, torch.ones((4, 8), device=card), rois, 7,
+                                            torch.float32)
+    with pytest.raises(ValueError):  # K1 takes f32 or bf16 input and output only
+        cuda_stem.fused_stem(torch.zeros((1, 3, 64, 64), device=card, dtype=torch.float16), w,
+                             torch.ones(64, device=card), torch.zeros(64, device=card),
+                             torch.float32)
+    with pytest.raises(ValueError):
+        cuda_stem.fused_stem(torch.zeros((1, 3, 64, 64), device=card), w,
+                             torch.ones(64, device=card), torch.zeros(64, device=card),
+                             torch.float16)
     # K2: 16-byte channel vectors, the sample tables, 32-bit indexing, alignment
     cl12 = [torch.zeros((1, 12, 8, 8), device=card, dtype=torch.bfloat16)
             .contiguous(memory_format=torch.channels_last) for _ in range(4)]
     with pytest.raises(ValueError):  # 12 bf16 channels: not a multiple of 8
         cuda_roi_align.roi_align(cl12, rois, 7)
+    with pytest.raises(ValueError):  # the same for K6
+        cuda_roi_align.roi_align_patch(cl12, rois, 7)
     with pytest.raises(ValueError):  # more channels than one block's threads take
         cuda_roi_align.roi_align([torch.zeros((1, 1028, 2, 2), device=card)
                                   .contiguous(memory_format=torch.channels_last)] * 4, rois, 7)
+    with pytest.raises(ValueError):
+        cuda_roi_align.roi_align_patch([torch.zeros((1, 1028, 2, 2), device=card)
+                                        .contiguous(memory_format=torch.channels_last)] * 4,
+                                       rois, 7)
     with pytest.raises(ValueError):  # 33 x 2 sample coordinates per axis, above 64
         cuda_roi_align.roi_align(cl, rois, 33)
     base = torch.zeros(8 * 8 * 8 + 1, device=card)
     shifted = base[1:].view(1, 8, 8, 8).permute(0, 3, 1, 2)  # channels_last, 4 bytes off
     with pytest.raises(ValueError):
         cuda_roi_align.roi_align([shifted] + cl[1:], rois, 7)
+    with pytest.raises(ValueError):
+        cuda_roi_align.roi_align_patch([shifted] + cl[1:], rois, 7)
     big = torch.empty((1, 8, 16384, 16385), device=card, dtype=torch.bfloat16,
                       memory_format=torch.channels_last)  # H x W x C >= 2^31
     with pytest.raises(ValueError):
         cuda_roi_align.roi_align([big] + [f.to(torch.bfloat16) for f in cl[1:]], rois, 7)
+    with pytest.raises(ValueError):
+        cuda_roi_align.roi_align_patch([big] + [f.to(torch.bfloat16) for f in cl[1:]], rois, 7)
     del big
     # K4: C a multiple of 4, 16-byte aligned operands, the grid's rows
     x6 = torch.zeros((2, 6), device=card)

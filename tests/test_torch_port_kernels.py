@@ -40,7 +40,9 @@ def _xla_stem(x, w, scale, shift):
                                  [(0, 0), (1, 1), (1, 1), (0, 0)])
 
 
-@pytest.mark.parametrize("b,h,w,seed", [(1, 64, 96, 0), (2, 128, 64, 1), (1, 160, 128, 2)])
+@pytest.mark.parametrize("b,h,w,seed", [(1, 64, 96, 0), (2, 128, 64, 1), (1, 160, 128, 2),
+                                        # pooled 17x25: no 8x16 tile of K1 divides it
+                                        (1, 68, 100, 3)])
 def test_k1_stem_plain_matches_pallas_and_xla(b, h, w, seed):
     rng = np.random.RandomState(seed)
     x = rng.randn(b, h, w, 3).astype(np.float32)
@@ -68,6 +70,25 @@ def test_k1_stem_plain_matches_pallas_and_xla(b, h, w, seed):
     want = np.asarray(_xla_stem(jnp.asarray(x), jnp.asarray(cw), jnp.asarray(scale),
                                 jnp.asarray(shift)))
     np.testing.assert_allclose(got, want, atol=2e-2 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_k1_stem_rounds_f32_input_on_load(out_dtype):
+    """The kernel reads the model's f32 images and rounds them to bf16 as it
+    loads them: f32 and bf16 input give the same output, and an f32 output
+    holds the bf16-rounded value."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(2, 3, 68, 100).astype(np.float32))
+    cw = torch.from_numpy((rng.randn(64, 3, 7, 7) * 0.2).astype(np.float32))
+    scale = torch.from_numpy((0.5 + rng.rand(64)).astype(np.float32))
+    shift = torch.from_numpy(rng.randn(64).astype(np.float32))
+    got = cuda_stem.fused_stem(x, cw, scale, shift, out_dtype)
+    assert cuda_stem.fused_stem.launches == 0
+    assert got.dtype == out_dtype and got.shape == (2, 64, 17, 25)
+    assert torch.equal(got, cuda_stem.fused_stem(x.to(torch.bfloat16), cw, scale, shift,
+                                                 out_dtype))
+    bf16 = cuda_stem.fused_stem(x, cw, scale, shift, torch.bfloat16)
+    assert torch.equal(got.to(torch.float32), bf16.to(torch.float32))
 
 
 # ---- K2: RoIAlign --------------------------------------------------------

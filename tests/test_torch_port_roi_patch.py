@@ -177,6 +177,71 @@ def test_k7_plain_matches_jax(data_int8, jax_k7):
     np.testing.assert_array_equal(got, want)
 
 
+def _border_rois(rng):
+    """[B, 24, 4] rois (the fixture's shape, so that the JAX kernels' compiles
+    are shared): at each level (square rois of side 40, 150, 300 and 520 map
+    to P2..P5), one ending on the canvas's last row and column, one reaching
+    beyond them, one on the last column at the top, and one whose window
+    starts at column -1 by the 8-aligned rule (first cell 1..6); the
+    fixture's four window-overflowing slivers; the last cell of P2, a
+    one-pixel roi on it, the whole canvas and a roi around it."""
+    h, w = 256, 384
+    out = []
+    for _ in range(B):
+        rows = []
+        for lv, side in enumerate((40.0, 150.0, 300.0, 520.0)):
+            s = side * rng.uniform(0.97, 1.03)
+            u, y = rng.uniform(1.0, 6.5) * 4 * 2 ** lv, rng.uniform(-20, h - s / 2)
+            rows += [[w - s, h - s, w, h], [w - s / 2, h - s / 2, w + s / 2, h + s / 2],
+                     [w - s, 0, w, s], [u, y, u + s, y + s]]
+        rows += [[x, 4, x + 62, 191] for x in (8.0, 170.0)]
+        rows += [[4, y, 191, y + 62] for y in (10.0, 150.0)]
+        rows += [[380, 252, 384, 256], [383, 255, 384, 256], [0, 0, w, h], [-10, -10, w + 10,
+                                                                              h + 10]]
+        out.append(rows)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_k6_k7_plain_on_border_rois_matches_jax(data, data_int8, kind):
+    """The window geometry that the kernels now compute themselves (level,
+    origin with the 8-aligned column rule, bounds) on rois at each level's
+    last row and column and at window column -1, K6 (f32) and K7 against
+    the JAX kernel."""
+    rois = _border_rois(np.random.RandomState(2))
+    assert rois.shape == data[1].shape
+    flat = torch.from_numpy(rois.reshape(-1, 4))
+    lvl, _, x0, _ = patch.patch_geometry(flat, LEVELS, (0.25, 0.125, 0.0625, 0.03125), 7)
+    assert set(lvl[(x0 == -1) & (flat[:, 0] > 0)].tolist()) == {0, 1, 2, 3}
+    for level, (h, w) in enumerate(LEVELS):  # some roi reaches the last row and column
+        sc = 0.25 / 2 ** level
+        at = lvl == level
+        assert ((flat[at, 3] * sc >= h) & (flat[at, 2] * sc >= w)).any()
+    assert _clamped(rois, 7).sum() >= 4
+    if kind == "f32":
+        feats = data[0]
+        want = np.asarray(jpatch.pallas_roi_align_batched(
+            [jnp.asarray(f) for f in feats], jnp.asarray(rois), 7, 2,
+            out_dtype=jnp.dtype(jnp.float32))).reshape(-1, 7, 7, C)
+        got = _nhwc(cuda_roi_align.roi_align_patch(_port_levels(feats), torch.from_numpy(rois),
+                                                   7))
+        assert cuda_roi_align.roi_align_patch.launches == 0
+        # the same operator entries; only the order of the f32 sums differs
+        assert np.abs(got - want).max() <= 1e-5
+    else:
+        feats = data_int8[0]
+        qs, scales = jpatch.quantize_features_int8([jnp.asarray(f) for f in feats])
+        want = np.asarray(jpatch.pallas_roi_align_batched(
+            qs, jnp.asarray(rois), 7, sampling_ratio=2, scales=scales,
+            out_dtype=jnp.dtype(jnp.float32))).reshape(-1, 7, 7, C_INT8)
+        q, s = patch.quantize_features_int8(_port_levels(feats))
+        got = _nhwc(cuda_roi_align.roi_align_patch_int8(q, s, torch.from_numpy(rois), 7,
+                                                        torch.float32))
+        assert cuda_roi_align.roi_align_patch_int8.launches == 0
+        # integer sums and the same dequantization: tolerance 0
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("budget", [64, 3])
 def test_exact_fixup_matches_jax(data, jax_k6, budget):
     """A budget above the clamped count makes every clamped roi exact; a
