@@ -13,6 +13,10 @@ Phases, one line each:
                computing the same function where PyTorch has one, and the
                least time the card could take (bytes over 3.35 TB/s or
                operations over the peak rate of their type, the larger);
+               K1 also on a canvas of mixed-size images from the port's
+               batching, with a zero and a drawn FrozenBN shift (its time
+               within 1.5x of dense input, and the values it recomputes),
+               and K5 called twice on the same inputs (equal bytes);
   3. slice   - the serving path at full width (ResNet-50-FPN, 4000
                proposals, 800x1344 canvases, chunk 11) with seeded random
                weights: a gallery of 16 synthetic shop images, then
@@ -55,12 +59,13 @@ import torch
 import torch.nn.functional as F
 
 from seam_match_rcnn_tpu_torch.config import (EvalConfig, RoIHeadsConfig, TrainConfig,
-                                              serving_model_config)
+                                              TransformConfig, serving_model_config)
 from seam_match_rcnn_tpu_torch.eval import movingfashion, multidf2
 from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix
 from seam_match_rcnn_tpu_torch.eval.runner import InferenceRunner
 from seam_match_rcnn_tpu_torch.models.layers import FrozenBatchNorm2d
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
+from seam_match_rcnn_tpu_torch.models.transform import batch_images, normalize
 from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem, native
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
@@ -217,11 +222,81 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def stem_recomputes(x, cw, sc, sh):
+    """How many conv values K1 recomputes on these inputs, by its own rule
+    (``csrc/stem.cu``, tile and exponent from ``cuda_stem.stem_tile``)
+    applied to the plain conv's f32 sums: per tile of tph x tpw pooled
+    outputs, each of the tile's (2 tph + 1) x (2 tpw + 1) conv positions
+    inside the conv output (a position in two tiles' halos counts for each)
+    whose |sum + shift| < 2^e x max |x| of the tile's (4 tph + 7) x (4 tpw +
+    7) x 3 input patch x sum |w| of its channel, and whose sum is not
+    exactly 0."""
+    tph, tpw, e = cuda_stem.stem_tile()
+    ch, cw_, ih, iw = 2 * tph + 1, 2 * tpw + 1, 4 * tph + 7, 4 * tpw + 7
+    wb, bias = cuda_stem.fold_stem_weights(cw, sc, sh)
+    w = wb.float()
+    w1 = w.abs().sum(dim=(1, 2, 3))
+    h, wd = x.shape[2:]
+    ty, tx = -(-h // (4 * tph)), -(-wd // (4 * tpw))
+    count = 0
+    for i in range(x.shape[0]):
+        xb = x[i:i + 1].to(torch.bfloat16).float()
+        a = F.conv2d(xb, w, stride=2, padding=3)
+        u = torch.where(a == 0, torch.inf, (a + bias[None, :, None, None]).abs())
+        # tile (ty, tx)'s patch: input rows 4 tph ty - 5 .. + ih - 1, columns
+        # 4 tpw tx - 5 .. + iw - 1
+        ax = F.pad(xb.abs().amax(dim=1, keepdim=True),
+                   (5, 4 * tpw * tx + 2 - wd, 5, 4 * tph * ty + 2 - h))
+        lim = F.max_pool2d(ax, (ih, iw), (4 * tph, 4 * tpw)) * 2.0 ** e * w1[None, :, None, None]
+        # its conv positions: rows 2 tph ty - 1 .. + 2 tph - 1, columns
+        # 2 tpw tx - 1 .. + 2 tpw - 1
+        u = F.pad(u, (1, 2 * tpw * tx - u.shape[3], 1, 2 * tph * ty - u.shape[2]),
+                  value=float("inf"))
+        u = F.unfold(u, (ch, cw_), stride=(2 * tph, 2 * tpw)).view(64, ch * cw_, ty * tx)
+        count += int((u < lim.reshape(64, 1, ty * tx)).sum())
+    return count
+
+
+def stem_canvas_cases(dev, rng, cw, sc, dense_ms):
+    """K1 on real canvases: 11 images of mixed sizes placed by the port's own
+    batching (``models/transform.batch_images``) on one 800x1344 canvas and
+    normalized, so that the padding at the canvas's edges is 0; once with a
+    zero FrozenBN shift (as a random-weight model has) and once with a drawn
+    one.  Each case holds K1 against its plain version, and fails when K1
+    takes more than 1.5x its time on dense input of the same shape
+    (``dense_ms``): a recompute list that overflows over the padding shows
+    as time (an earlier K1 took 2.5 ms on such canvases against 0.9)."""
+    cfg = TransformConfig()
+    sizes = [(600, 800), (720, 1280), (480, 640), (768, 1024), (540, 960), (500, 900),
+             (640, 960), (450, 800), (375, 500), (600, 1000), (427, 640)]
+    (batch,) = batch_images([synthetic_image(rng, h, w)[0] for h, w in sizes], cfg, dev)
+    x = normalize(batch.pixels, cfg)
+    padding = float((x == 0).all(dim=1).float().mean())
+    cases, all_ok = [], True
+    for label, sh in (("zero shift", torch.zeros(64, device=dev)),
+                      ("drawn shift", torch.from_numpy(rng.randn(64).astype(np.float32) * 0.1)
+                       .to(dev))):
+        got = cuda_stem.fused_stem(x, cw, sc, sh, torch.bfloat16)
+        err, tol, ok = check_bf16(got, cuda_stem.stem_plain(x, cw, sc, sh, torch.bfloat16))
+        ms = median_ms(lambda: cuda_stem.fused_stem(x, cw, sc, sh, torch.bfloat16), 10)
+        redo = stem_recomputes(x, cw, sc, sh)
+        fast = ms <= 1.5 * dense_ms
+        cases.append(dict(shape=f"[11,3,800,1344] canvas f32, {label} -> bf16", max_abs_err=err,
+                          tol=tol, ms=ms, dense_ms=dense_ms, recomputed=redo,
+                          padding_share=padding, ok=ok and fast))
+        values = x.shape[0] * 64 * x[0, 0].numel() // 4  # conv outputs
+        log(f"k1 canvas: {label}: {redo} conv values recomputed (of {values}), "
+            f"{padding:.3f} of the canvas is padding; kernel {ms:.4f} ms against {dense_ms:.4f} "
+            f"ms on dense input (limit 1.5x); max_abs_err={err:.3g} ({tol})")
+        all_ok &= ok and fast
+    return cases, all_ok
+
+
 def check_adjoint(got, want, mass, dtype):
     """K5 and its plain version add the same f32 summands in another order
-    (the kernel with atomics, whose order changes from run to run): |error|
-    <= 1e-5 x the sum of |summands| (the adjoint of |g|), plus one bf16 ulp
-    for the final rounding of a bf16 gradient."""
+    (the kernel's is fixed: each cell summed by one thread, roi by roi):
+    |error| <= 1e-5 x the sum of |summands| (the adjoint of |g|), plus one
+    bf16 ulp for the final rounding of a bf16 gradient."""
     err, ok = 0.0, True
     for a, w, m in zip(got, want, mass):
         a = a.permute(0, 2, 3, 1).float()
@@ -263,10 +338,13 @@ def phase_kernels(dev, results):
         all_ok &= ok
         del x, got, want
     del x32
-    results["fused_stem"] = dict(max_abs_err=max(c["max_abs_err"] for c in cases),
-                                 ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"], ok=all_ok,
-                                 bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
-                                 library_ms=cases[0]["library_ms"], cases=cases)
+    canvas, canvas_ok = stem_canvas_cases(dev, rng, cw, sc, cases[1]["ms"])
+    results["fused_stem"] = dict(max_abs_err=max(c["max_abs_err"] for c in cases + canvas),
+                                 ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+                                 ok=all_ok and canvas_ok, bound_ms=cases[0]["bound_ms"],
+                                 bound_by=cases[0]["bound_by"],
+                                 library_ms=cases[0]["library_ms"], cases=cases,
+                                 canvas_cases=canvas)
 
     # K2: serving box branch 11 x 4000 rois at 7x7 and match branch 11 x 100
     # at 14x14; training box branch 8 x 512 at 7x7 and mask branch 8 x 128 at
@@ -299,15 +377,22 @@ def phase_kernels(dev, results):
                                 library_ms=None, cases=cases)
 
     # K5 at the training shapes: f32 cotangents of 8 x 512 rois at 7x7 and
-    # 8 x 128 at 14x14 -> the gradient of an 8-image bf16 pyramid
-    cases, all_ok, worst = [], True, 0.0
+    # 8 x 128 at 14x14 -> the gradient of an 8-image bf16 pyramid; two calls
+    # on the same inputs must give the same bytes
+    cases, all_ok, worst, deterministic = [], True, 0.0, True
     for b, n, o, reps in ((8, 512, 7, 10), (8, 128, 14, 10)):
         rois = serving_rois(rng, b, n).to(dev)
         g = torch.randn((b, n, o, o, 256), generator=gen, device=dev)
         got = cuda_roi_align.roi_align_adjoint(g, rois, PYRAMID, torch.bfloat16)
+        again = cuda_roi_align.roi_align_adjoint(g, rois, PYRAMID, torch.bfloat16)
+        same = all(torch.equal(a.view(torch.int16), z.view(torch.int16))
+                   for a, z in zip(got, again))
+        deterministic &= same
+        del again
         want = multilevel_roi_align_adjoint(g, rois, PYRAMID)
         mass = multilevel_roi_align_adjoint(g.abs(), rois, PYRAMID)
         err, tol, ok = check_adjoint(got, want, mass, torch.bfloat16)
+        ok &= same
         del want, mass
         ms = median_ms(lambda: cuda_roi_align.roi_align_adjoint(g, rois, PYRAMID,
                                                                 torch.bfloat16), reps)
@@ -317,37 +402,43 @@ def phase_kernels(dev, results):
         b_ms, b_by = bound(nbytes(g, rois, *got), ops, "f32")
         cases.append(dict(shape=f"{b}x{n} rois {o}x{o} -> bf16 pyramid", max_abs_err=err,
                           tol=tol, ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
-                          bound_by=b_by))
+                          bound_by=b_by, deterministic=same))
         all_ok &= ok
         worst = max(worst, err)
         del got, g
     results["roi_align_adjoint"] = dict(
         max_abs_err=worst, ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"], ok=all_ok,
         bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"], library_ms=None,
-        cases=cases)
+        cases=cases, deterministic=deterministic)
+    log(f"kernels: roi_align_adjoint deterministic={deterministic} (two calls, equal bytes)")
+    if not deterministic:
+        raise SystemExit("kernels: roi_align_adjoint gave different bytes on the same inputs")
 
     phase_kernels_patch(dev, rng, gen, results)
 
-    # K3 at S in {1, 64}, T = 10, with a non-zero W_z
+    # K3 at S in {1, 64}, T = 10, and S = 7, T = 32 with a track that has no
+    # valid frame, with a non-zero W_z
     d = lambda i, o: t(rng.randn(i, o) / np.sqrt(i))
     v = lambda o: t(rng.randn(o) * 0.1)
     p = {"theta_w": d(256, 128), "theta_b": v(128), "phi_w": d(256, 128), "phi_b": v(128),
          "g_w": d(256, 128), "g_b": v(128), "wcat": v(256), "wz_w": d(128, 256),
          "wz_b": v(256), "att_w": v(256), "att_b": v(1)}
     cases, all_ok, worst = [], True, 0.0
-    for s in (1, 64):
-        mask = torch.from_numpy(np.arange(10)[None] < rng.randint(1, 11, (s, 1))).to(dev)
-        seqs = t(rng.randn(s, 10, 256)) * mask[..., None]
+    for s, tt in ((1, 10), (64, 10), (7, 32)):
+        lengths = rng.randint(1, tt + 1, (s, 1))
+        if s == 7:
+            lengths[0] = 0  # a track with no valid frame
+        mask = torch.from_numpy(np.arange(tt)[None] < lengths).to(dev)
+        seqs = t(rng.randn(s, tt, 256)) * mask[..., None]
         got = cuda_kernels.nlb_aggregate(seqs, mask, p)
         want = cuda_kernels.nlb_aggregate_plain(seqs, mask, p)
         err, tol, ok = check_f32(got, want)
         ms = median_ms(lambda: cuda_kernels.nlb_aggregate(seqs, mask, p), 50)
         pms = median_ms(lambda: cuda_kernels.nlb_aggregate_plain(seqs, mask, p), 50)
-        tt = 10
         ops = s * (3 * 2 * tt * 256 * 128 + 2 * tt * tt * 128 + 2 * tt * 128 * 256
                    + 4 * tt * 256 + 2 * 2 * tt * 128)
         b_ms, b_by = bound(nbytes(seqs, mask, got, *p.values()), ops, "f32")
-        cases.append(dict(shape=f"S={s} T=10", max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
+        cases.append(dict(shape=f"S={s} T={tt}", max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
                           library_ms=None, bound_ms=b_ms, bound_by=b_by))
         all_ok &= ok
         worst = max(worst, err)
@@ -862,12 +953,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases",
+            "canvas_cases", "deterministic")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts[name] for counts in paths.values()),
          "launches_by_path": {path: counts[name] for path, counts in paths.items()},
-         **{k: results[name][k] for k in keys}}
+         **{k: results[name][k] for k in keys if k in results[name]}}
         for name, (src, rep, _) in KERNELS.items()],
         "retrieve_ms": [x * 1e3 for x in latencies], "gallery_ms": gallery_s * 1e3,
         "serving_peak_gib": serve_peak_gb, "eval": eval_report, "train_step_ms": step_ms,

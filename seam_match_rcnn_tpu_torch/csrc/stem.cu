@@ -369,6 +369,16 @@ extern "C" const char* seam_cuda_error_string(int status) {
   return cudaGetErrorString((cudaError_t)status);
 }
 
+// The pooled rows and columns of a tile and the recompute rule's exponent
+// (|value + shift| < 2^redo_exp max|x| sum|w|): chip_smoke.py counts the
+// values the kernel recomputes from them.
+extern "C" int seam_stem_tile(int* pooled_rows, int* pooled_cols, int* redo_exp) {
+  *pooled_rows = TPH;
+  *pooled_cols = TPW;
+  *redo_exp = REDO_EXP;
+  return 0;
+}
+
 extern "C" int seam_stem_forward(const void* x, const void* w, const void* bias, void* out,
                                  int B, int H, int W, int in_f32, int out_f32, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || H % 4 != 0 || W % 4 != 0) return (int)cudaErrorInvalidValue;

@@ -19,6 +19,15 @@ from .pairwise import pairwise_match_scores
 NLB_KEYS = ("theta_w", "theta_b", "phi_w", "phi_b", "g_w", "g_b", "wcat",
             "wz_w", "wz_b", "att_w", "att_b")
 NLB_MAX_T = 32
+NLB_SHAPES = {"theta_w": (256, 128), "theta_b": (128,), "phi_w": (256, 128), "phi_b": (128,),
+              "g_w": (256, 128), "g_b": (128,), "wcat": (256,), "wz_w": (128, 256),
+              "wz_b": (256,), "att_w": (256,), "att_b": (1,)}
+# the weights K3 copies to shared memory 16 bytes at a time
+_NLB_STAGED = tuple(NLB_KEYS.index(k) for k in ("theta_w", "phi_w", "g_w", "wz_w"))
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype is torch.float32 and t.is_contiguous() else t.to(torch.float32).contiguous()
 
 
 def nlb_aggregate_plain(seqs: torch.Tensor, mask: torch.Tensor,
@@ -52,35 +61,36 @@ def nlb_aggregate_plain(seqs: torch.Tensor, mask: torch.Tensor,
 def nlb_aggregate(seqs: torch.Tensor, mask: torch.Tensor,
                   p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Fused TemporalAggregator.aggregate: seqs [S, T, 256], mask [S, T] ->
-    [S, 256] f32.  CPU tensors take the plain version; the kernel takes
-    C = 256 and T <= 32."""
+    [S, 256] f32.  CPU tensors take the plain version; the kernel (a
+    cluster of 8 blocks a track) takes C = 256, T <= 32, and seqs and the
+    four weight matrices 16-byte aligned."""
     if seqs.device.type == "cpu":
         return nlb_aggregate_plain(seqs, mask, p)
-    name = "nlb_aggregate"
-    req = native.require
-    req(seqs.device.type == "cuda", name, f"seqs on {seqs.device}, not cuda")
-    req(seqs.dim() == 3 and seqs.shape[2] == 256, name, "seqs must be [S, T, 256]")
-    s, t, c = seqs.shape
-    req(1 <= t <= NLB_MAX_T, name, f"T = {t} outside [1, {NLB_MAX_T}]")
-    req(tuple(mask.shape) == (s, t), name, "mask must be [S, T]")
-    shapes = {"theta_w": (c, c // 2), "theta_b": (c // 2,), "phi_w": (c, c // 2),
-              "phi_b": (c // 2,), "g_w": (c, c // 2), "g_b": (c // 2,), "wcat": (c,),
-              "wz_w": (c // 2, c), "wz_b": (c,), "att_w": (c,), "att_b": (1,)}
-    ws = []
-    for k in NLB_KEYS:
-        w = p[k].to(torch.float32).contiguous()
-        req(tuple(w.shape) == shapes[k] and w.device == seqs.device, name,
-            f"{k} must be {shapes[k]} on {seqs.device}")
-        ws.append(w)
-    seqs32 = seqs.to(torch.float32).contiguous()
-    mask32 = mask.to(torch.float32).contiguous()
-    out = torch.empty((s, c), dtype=torch.float32, device=seqs.device)
+    if not all(k in p for k in NLB_KEYS):
+        raise ValueError(f"nlb_aggregate: needs the weights {NLB_KEYS}, got {tuple(p)}")
+    ws = [_f32(p[k]) for k in NLB_KEYS]
+    seqs32, mask32 = _f32(seqs), mask.to(torch.float32).contiguous()
+    dev = seqs.device
+    s, t, c = seqs.shape if seqs.dim() == 3 else (0, 0, 0)
+    # one expression: a serving request's call is bound by the host
+    if not (dev.type == "cuda" and c == 256 and 1 <= t <= NLB_MAX_T
+            and tuple(mask.shape) == (s, t) and mask.device == dev
+            and all(tuple(w.shape) == NLB_SHAPES[k] and w.device == dev
+                    for k, w in zip(NLB_KEYS, ws))
+            and all(x.data_ptr() % 16 == 0 for x in [seqs32] + [ws[i] for i in _NLB_STAGED])):
+        raise ValueError(
+            f"nlb_aggregate: needs seqs [S, T, 256] with 1 <= T <= {NLB_MAX_T} and mask "
+            f"[S, T] on one CUDA device, weights of shapes {NLB_SHAPES} there, and seqs and "
+            f"the theta, phi, g and W_z kernels 16-byte aligned; got seqs "
+            f"{tuple(seqs.shape)} on {dev}, mask {tuple(mask.shape)}, weights "
+            f"{ {k: tuple(w.shape) for k, w in zip(NLB_KEYS, ws)} }")
+    out = torch.empty((s, c), dtype=torch.float32, device=dev)
     if s:
-        with native.device(seqs.device):
+        with native.device(dev):
             status = native.library().seam_nlb_aggregate(
                 native.ptr(seqs32), native.ptr(mask32), *[native.ptr(w) for w in ws],
-                native.ptr(out), s, t, native.stream(seqs.device))
-        native.check(status, name)
+                native.ptr(out), s, t, native.stream(dev))
+        native.check(status, "nlb_aggregate")
         nlb_aggregate.launches += 1
     return out
 
@@ -100,10 +110,6 @@ def pairwise_tile_rows(q: int) -> int:
 
 
 PAIRWISE_MAX_Q = 65535 * PAIRWISE_TILES[1]  # grid rows of the tall tile
-
-
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    return t if t.dtype is torch.float32 and t.is_contiguous() else t.to(torch.float32).contiguous()
 
 
 def pairwise_scores(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,

@@ -37,6 +37,7 @@ ROI_ALIGN_THREADS = 256  # K2/K6/K7's block; one thread per 16 bytes of a cell's
 ROI_ALIGN_MAX_SAMPLES = 64  # K2's sample coordinates per axis, output_size x ratio
 ROI_PATCH_MAX_OUT = 16  # K6/K7's tap tables: output sizes up to 16
 ROI_PATCH_MAX_RATIO = 4  # and 2 x ratio taps per bin and axis
+ROI_ADJOINT_MAX_RATIO = 4  # K5 holds a bin's sample taps in registers
 
 
 def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
@@ -199,12 +200,11 @@ def roi_align_adjoint(grad: torch.Tensor, rois: torch.Tensor,
     """The gradient of ``roi_align`` with respect to each level: grad [B, R,
     out, out, C] f32 cotangent (NHWC bins), rois [B, R, 4] -> per level [B,
     C, H_l, W_l] in ``dtype``, channels_last.  CPU tensors take the plain
-    version; CUDA tensors launch K5, which accumulates in an f32 scratch
-    zeroed here and cast to ``dtype`` at the end.
-
-    The kernel adds with atomics, so the order of the f32 additions, and the
-    last bits of a sum, change from run to run; the plain version on the CPU
-    is deterministic."""
+    version; CUDA tensors launch K5, which writes every cell of the output
+    (allocated here with ``torch.empty``, the one device op besides the
+    launch) once, in ``dtype``.  The kernel sums each cell in a fixed order,
+    so two calls on the same inputs return the same bytes; that order is
+    not the plain version's, whose f32 sums may differ in the last bits."""
     if rois.device.type == "cpu":
         grads = multilevel_roi_align_adjoint(grad, rois, level_shapes, sampling_ratio,
                                              spatial_scales)
@@ -221,23 +221,31 @@ def roi_align_adjoint(grad: torch.Tensor, rois: torch.Tensor,
         and grad.shape[:2] == (b, r) and grad.shape[2] == grad.shape[3]
         and grad.is_contiguous(), name, "grad must be contiguous f32 [B, R, out, out, C]")
     o, c = grad.shape[2], grad.shape[4]
+    req(o >= 1 and 1 <= sampling_ratio <= ROI_ADJOINT_MAX_RATIO
+        and o * sampling_ratio <= ROI_ALIGN_MAX_SAMPLES, name,
+        f"sampling_ratio must be in [1, {ROI_ADJOINT_MAX_RATIO}] and output_size x "
+        f"sampling_ratio at most {ROI_ALIGN_MAX_SAMPLES}")
+    vec = 16 // dtype.itemsize  # channels a 16-byte store holds
+    req(c > 0 and c % vec == 0, name, f"C = {c} must be a positive multiple of {vec}")
     sizes = [b * h * w * c for h, w in level_shapes]
-    scratch = torch.zeros(sum(sizes), dtype=torch.float32, device=rois.device)
+    n = b * r
+    # the kernel writes every cell; with no roi there is nothing to launch
+    alloc = torch.empty if n else torch.zeros
+    flat = alloc(sum(sizes), dtype=dtype, device=rois.device)
     levels, start = [], 0
     for (h, w), size in zip(level_shapes, sizes):
-        levels.append(scratch[start:start + size].view(b, h, w, c))
+        levels.append(flat[start:start + size].view(b, h, w, c))
         start += size
-    n = b * r
     if n:
         with native.device(rois.device):
             status = native.library().seam_roi_align_adjoint(
                 *[native.ptr(g) for g in levels], *[h for h, _ in level_shapes],
                 *[w for _, w in level_shapes], *[float(s) for s in spatial_scales],
                 native.ptr(grad), native.ptr(rois), n, r, c, o, sampling_ratio,
-                native.stream(rois.device))
+                int(dtype == torch.bfloat16), native.stream(rois.device))
         native.check(status, name)
         roi_align_adjoint.launches += 1
-    return tuple(g.to(dtype).permute(0, 3, 1, 2) for g in levels)
+    return tuple(g.permute(0, 3, 1, 2) for g in levels)
 
 
 roi_align_adjoint.launches = 0

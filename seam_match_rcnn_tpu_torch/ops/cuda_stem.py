@@ -10,6 +10,8 @@ what bounds the kernel and how it is laid out.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +38,17 @@ def stem_plain(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
     y = F.relu(y + bias[None, :, None, None])
     y = F.max_pool2d(y, 3, stride=2, padding=1)
     return y.to(torch.bfloat16).to(out_dtype)
+
+
+def stem_tile():
+    """(pooled rows, pooled columns, e) of the kernel's tile and of its rule
+    for the conv values it recomputes (|value + shift| < 2^e max|x| of the
+    tile's input patch x sum|w| of the channel, not an exactly-zero sum),
+    read from the kernel library."""
+    v = [ctypes.c_int() for _ in range(3)]
+    native.check(native.library().seam_stem_tile(*[ctypes.byref(x) for x in v]),
+                 "seam_stem_tile")
+    return tuple(x.value for x in v)
 
 
 def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,

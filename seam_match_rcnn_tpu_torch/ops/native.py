@@ -39,14 +39,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, bias, out, B, H, W, x is f32, out is f32, stream
     "seam_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pooled rows, pooled columns, recompute exponent (int* each)
+    "seam_stem_tile": [_P, _P, _P],
     # 4 level pointers, 4 heights, 4 widths, 4 scales, rois, out,
     # N, R, C, output_size, sampling_ratio, is_bf16, stream
     "seam_roi_align_forward": [_P] * 4 + [_I] * 8 + [_F] * 4
     + [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # 4 f32 gradient level pointers, 4 heights, 4 widths, 4 scales,
-    # cotangent, rois, N, R, C, output_size, sampling_ratio, stream
+    # 4 gradient level pointers, 4 heights, 4 widths, 4 scales,
+    # cotangent, rois, N, R, C, output_size, sampling_ratio, out is bf16, stream
     "seam_roi_align_adjoint": [_P] * 4 + [_I] * 8 + [_F] * 4
-    + [_P, _P, _I, _I, _I, _I, _I, _P],
+    + [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # 4 level pointers, 4 heights, 4 widths, 4 scales, rois, out,
     # N, R, C, output_size, sampling_ratio, is_bf16, stream
     "seam_roi_align_patch": [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2 + [_I] * 6 + [_P],

@@ -14,7 +14,8 @@ Port of ``seam_match_rcnn_tpu/ops/roi_align.py`` with torchvision
 
 This is kernel K2's plain version (``ops/cuda_roi_align.py`` runs it for CPU
 tensors); ``multilevel_roi_align_adjoint``, its exact adjoint, is kernel
-K5's plain version.  All levels of the batch are flattened into one channels-last
+K5's plain version, and ``roi_footprints`` the plain twin of the rule by
+which K5 picks a tile's rois.  All levels of the batch are flattened into one channels-last
 table so that a roi's image and level become an index offset and one gather
 serves every level; rois are processed in chunks to bound the transient
 ``[chunk, P, P, C]`` buffers.
@@ -136,6 +137,34 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
                       sampling_ratio * sampling_ratio)
         out[s:s + roi_chunk] = pooled.to(dtype)
     return out.permute(0, 3, 1, 2)
+
+
+def roi_footprints(rois: torch.Tensor, level_shapes: Sequence[Tuple[int, int]],
+                   output_size: int, sampling_ratio: int = 2,
+                   spatial_scales: Tuple[float, ...] = SPATIAL_SCALES):
+    """The cells of its level that each roi's samples can touch, by kernel
+    K5's rule (``footprint_axis`` in ``csrc/roi_adjoint.cu``), which picks the
+    rois of a tile: along each axis, from the low corner of the first sample
+    (clamped up to -1) to the high corner of the last (clamped down to the
+    level's size).  Sample coordinates rise with the sample index, so the
+    corners of every sample inside [-1, size] lie between.  rois [..., 4] ->
+    (level, y0, y1, x0, x1), int64 [N], bounds inclusive; empty (y0 > y1 or
+    x0 > x1) when every sample along an axis lies outside [-1, size]."""
+    flat = rois.reshape(-1, 4).to(torch.float32)
+    heights, widths, _, scales, _ = _level_tables(level_shapes, spatial_scales, flat.device)
+    lvl = fpn_level_indices(flat, len(level_shapes))
+    scale = scales[lvl]
+    bounds = []
+    for lo_i, hi_i, size in ((1, 3, heights[lvl]), (0, 2, widths[lvl])):
+        start = flat[:, lo_i] * scale
+        length = (flat[:, hi_i] * scale - start).clamp(min=1.0)
+        coords = _sample_axis(start, _div(length, output_size), output_size, sampling_ratio)
+        c0, c1 = coords[:, 0], coords[:, -1]
+        empty = (c1 < -1.0) | (c0 > size)
+        first = _bilinear_params(c0.clamp(min=-1.0), size)[0]
+        last = _bilinear_params(torch.minimum(c1, size.to(c1.dtype)), size)[1]
+        bounds += [torch.where(empty, 0, first), torch.where(empty, -1, last)]
+    return (lvl, *bounds)
 
 
 def multilevel_roi_align_adjoint(grad: torch.Tensor, rois: torch.Tensor,

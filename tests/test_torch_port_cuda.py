@@ -17,7 +17,8 @@ import torch
 from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
 from seam_match_rcnn_tpu_torch.ops.roi_align import (fpn_level_indices, multilevel_roi_align,
-                                                      multilevel_roi_align_adjoint)
+                                                      multilevel_roi_align_adjoint,
+                                                      roi_footprints)
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 
 pytestmark = pytest.mark.cuda
@@ -100,6 +101,12 @@ def _k5_rois(rng, b, n, kind):
                            [740, 0, 790, 384], [0, 370, 768, 400], [100, 100, 100, 100],
                            [0, 0, 2, 2], [0, 0, 768, 384]], np.float32)
         return np.stack([base[rng.permutation(len(base))] for _ in range(b)])
+    if kind == "large":
+        # 450-760 px sides: P5 (12 x 24 cells here), 2-3 of K5's 8x8-cell
+        # tiles along each axis, some beyond the canvas
+        x1, y1 = rng.uniform(-60, 300, (b, n)), rng.uniform(-60, 20, (b, n))
+        return np.stack([x1, y1, x1 + rng.uniform(520, 760, (b, n)),
+                         y1 + rng.uniform(450, 480, (b, n))], -1).astype(np.float32)
     if kind == "wide":
         # slivers that map to P2 (small area) yet span 150-190 cells there:
         # three 64-cell bands, beyond the TPU kernel's 2x2 bands
@@ -178,14 +185,122 @@ def test_roi_align_adjoint_kernel_matches_plain(card, dtype, o, kind, n):
         assert a.is_contiguous(memory_format=torch.channels_last)
         a = a.permute(0, 2, 3, 1).float().cpu().numpy()
         w, m = w.cpu().numpy(), m.cpu().numpy()
-        # the same f32 summands added in another order (atomics, which
-        # reorder from run to run): |error| <= 1e-5 x the sum of |summands|
+        # the same f32 summands added in another (fixed) order: |error| <=
+        # 1e-5 x the sum of |summands|
         tol = 1e-5 * m + 1e-7
         if dtype == torch.bfloat16:
             tol = tol + _bf16_ulp(w)  # one final rounding to bf16 on each side
         assert np.all(np.abs(a - w) <= tol), f"level {lv}"
     if kind == "empty":
         assert all(float(a.abs().max()) == 0.0 for a in got)
+
+
+def _k5_check(got, g, rois, dtype):
+    """K5's output against the plain adjoint: the same f32 summands added in
+    another (fixed) order, |error| <= 1e-5 x the sum of |summands|, plus one
+    bf16 ulp for bf16 output."""
+    want = multilevel_roi_align_adjoint(g, rois, K5_LEVELS)
+    mass = multilevel_roi_align_adjoint(g.abs(), rois, K5_LEVELS)
+    for lv, (a, w, m) in enumerate(zip(got, want, mass)):
+        a = a.permute(0, 2, 3, 1).float().cpu().numpy()
+        w, m = w.cpu().numpy(), m.cpu().numpy()
+        tol = 1e-5 * m + 1e-7
+        if dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(w)
+        assert np.all(np.abs(a - w) <= tol), f"level {lv}"
+
+
+@pytest.mark.parametrize("branch,o,n,dtype", [("box", 7, 512, torch.bfloat16),
+                                              ("mask", 14, 128, torch.bfloat16),
+                                              ("box", 7, 512, torch.float32)])
+def test_roi_align_adjoint_kernel_is_deterministic(card, branch, o, n, dtype):
+    """The training shapes (8 x 512 rois at 7x7, 8 x 128 at 14x14) in small
+    form: two calls on the same inputs return the same bytes."""
+    rng = np.random.RandomState(60 + o)
+    b, c = 2, 64
+    rois = torch.from_numpy(_k5_rois(rng, b, n, "mix")).to(card)
+    g = torch.from_numpy(rng.randn(b, n, o, o, c).astype(np.float32)).to(card)
+    n0 = cuda_roi_align.roi_align_adjoint.launches
+    first = cuda_roi_align.roi_align_adjoint(g, rois, K5_LEVELS, dtype)
+    second = cuda_roi_align.roi_align_adjoint(g, rois, K5_LEVELS, dtype)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align_adjoint.launches == n0 + 2
+    for a, z in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           z.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    _k5_check(first, g, rois, dtype)
+
+
+def test_roi_align_patch_backward_is_deterministic(card):
+    """The "pallas" step's backward (K6 forward, K5 backward) twice on the
+    same inputs: the level gradients are equal bytes."""
+    rng = np.random.RandomState(61)
+    b, n, c = 2, 60, 64
+    base = [torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(card, torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for h, w in K5_LEVELS]
+    rois = torch.from_numpy(_k6_rois(rng, b, n)).to(card)
+    g = torch.from_numpy(rng.randn(b * rois.shape[1], c, 7, 7).astype(np.float32)).to(
+        card, torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        feats = [f.clone().requires_grad_(True) for f in base]
+        cuda_roi_align.roi_align_patch(feats, rois, 7).backward(g)
+        grads.append([f.grad for f in feats])
+    torch.cuda.synchronize()
+    for a, z in zip(*grads):
+        assert torch.equal(a.view(torch.int16), z.view(torch.int16))
+
+
+@pytest.mark.parametrize("kind,o,n,dtype", [("large", 7, 40, torch.float32),
+                                            ("large", 14, 20, torch.bfloat16),
+                                            ("wide", 14, 12, torch.float32),
+                                            ("wide", 7, 12, torch.bfloat16),
+                                            ("borders", 14, 8, torch.bfloat16)])
+def test_roi_align_adjoint_kernel_on_multi_tile_footprints(card, kind, o, n, dtype):
+    """Rois whose footprint spans many of K5's 8x8-cell tiles: large rois
+    on P5, wide slivers on P2 (14x14 bins of wide aspect), rois that clamp
+    at the last row and column."""
+    rng = np.random.RandomState(70 + o + n)
+    b, c = 2, 32
+    rois = _k5_rois(rng, b, n, kind)
+    lvl, y0, y1, x0, x1 = roi_footprints(torch.from_numpy(rois), K5_LEVELS, o)
+    spans = ((y1 // 8 - y0 // 8 + 1) * (x1 // 8 - x0 // 8 + 1))[(y0 <= y1) & (x0 <= x1)]
+    assert int(spans.max()) >= 4
+    if kind == "large":
+        assert (lvl == 3).all()
+    rois = torch.from_numpy(rois).to(card)
+    g = torch.from_numpy(rng.randn(b, n, o, o, c).astype(np.float32)).to(card)
+    n0 = cuda_roi_align.roi_align_adjoint.launches
+    got = cuda_roi_align.roi_align_adjoint(g, rois, K5_LEVELS, dtype)
+    torch.cuda.synchronize()
+    assert cuda_roi_align.roi_align_adjoint.launches == n0 + 1
+    _k5_check(got, g, rois, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_align_adjoint_kernel_writes_zeros_outside_every_footprint(card, dtype):
+    """The kernel writes every cell of its output, which the wrapper takes
+    from torch.empty: with the allocator's block last filled with NaN, the
+    cells outside every roi's footprint are exactly 0 and the rest finite."""
+    rng = np.random.RandomState(80)
+    b, n, c, o = 2, 30, 64, 7
+    rois = _k5_rois(rng, b, n, "mix")
+    g = torch.from_numpy(rng.randn(b, n, o, o, c).astype(np.float32)).to(card)
+    size = sum(b * h * w * c for h, w in K5_LEVELS)
+    torch.full((size,), float("nan"), dtype=dtype, device=card)  # freed at once
+    got = cuda_roi_align.roi_align_adjoint(g, torch.from_numpy(rois).to(card), K5_LEVELS, dtype)
+    torch.cuda.synchronize()
+    lvl, y0, y1, x0, x1 = (v.numpy() for v in roi_footprints(torch.from_numpy(rois),
+                                                               K5_LEVELS, o))
+    img = np.repeat(np.arange(b), n)
+    for level, a in enumerate(got):
+        a = a.permute(0, 2, 3, 1).float().cpu().numpy()
+        assert np.isfinite(a).all()
+        inside = np.zeros(a.shape[:3], bool)
+        for i in np.nonzero(lvl == level)[0]:
+            inside[img[i], y0[i]:y1[i] + 1, x0[i]:x1[i] + 1] = True
+        assert (a[~inside] == 0).all() and (~inside).any()
+    _k5_check(got, g, torch.from_numpy(rois).to(card), dtype)
 
 
 def test_roi_align_function_backward_on_the_card(card):
@@ -358,8 +473,12 @@ def test_roi_align_patch_backward_on_the_card(card):
         assert np.all(np.abs(a - w) <= 1e-5 * m + 1e-7 + _bf16_ulp(w))
 
 
-@pytest.mark.parametrize("s,t", [(1, 1), (1, 10), (64, 10), (5, 32)])
+@pytest.mark.parametrize("s,t", [(1, 1), (1, 10), (64, 10), (5, 32), (7, 32), (7, 10),
+                                 (64, 1), (1, 32)])
 def test_nlb_kernel_matches_plain(card, s, t):
+    """Ragged tracks, S that fills no multiple of the card, T = 1 and 32;
+    with S > 1 a track with no valid frame (count clamped to 1, output 0)
+    and, with S > 2, a single-frame one (NLB skipped); one launch a call."""
     rng = np.random.RandomState(s * 100 + t)
     d = lambda i, o: torch.from_numpy((rng.randn(i, o) / np.sqrt(i)).astype(np.float32)).to(card)
     v = lambda o: torch.from_numpy((rng.randn(o) * 0.1).astype(np.float32)).to(card)
@@ -367,11 +486,20 @@ def test_nlb_kernel_matches_plain(card, s, t):
          "g_w": d(256, 128), "g_b": v(128), "wcat": v(256), "wz_w": d(128, 256),
          "wz_b": v(256), "att_w": v(256), "att_b": v(1)}
     lengths = rng.randint(1, t + 1, s)
+    lengths[-1] = t
+    if s > 1:
+        lengths[0] = 0
+    if s > 2:
+        lengths[1] = 1
     mask = torch.from_numpy(np.arange(t)[None] < lengths[:, None]).to(card)
     seqs = torch.from_numpy(rng.randn(s, t, 256).astype(np.float32)).to(card) * mask[..., None]
+    n0 = cuda_kernels.nlb_aggregate.launches
     got = cuda_kernels.nlb_aggregate(seqs, mask, p)
     torch.cuda.synchronize()
+    assert cuda_kernels.nlb_aggregate.launches == n0 + 1
     want = cuda_kernels.nlb_aggregate_plain(seqs, mask, p)
+    if s > 1:
+        assert float(got[0].abs().max()) == 0.0
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
 
 

@@ -20,7 +20,8 @@ from seam_match_rcnn_tpu.ops.roi_align import multilevel_roi_align_adjoint as ja
 from seam_match_rcnn_tpu_torch.ops import cuda_roi_align, cuda_stem
 from seam_match_rcnn_tpu_torch.ops.cuda_roi_align import RoIAlignFunction, roi_align
 from seam_match_rcnn_tpu_torch.ops.roi_align import (multilevel_roi_align,
-                                                      multilevel_roi_align_adjoint)
+                                                      multilevel_roi_align_adjoint,
+                                                      roi_footprints)
 
 torch.set_num_threads(2)
 
@@ -98,6 +99,44 @@ def test_k5_plain_matches_pallas_adjoint_kernel(name):
         b = np.asarray(b)
         np.testing.assert_allclose(a, b, atol=2e-5 * max(1.0, np.abs(b).max()),
                                    err_msg=f"level {lv}")
+
+
+# on and beyond the 256x384 canvas's edges, at every level: K5's footprint
+# rule clamps these at -1 and at the level's size
+EDGE_ROIS = np.asarray([[
+    [-30.0, -20.0, 20.0, 25.0], [360.0, 230.0, 400.0, 270.0], [370.0, 0.0, 384.0, 256.0],
+    [0.0, 250.0, 384.0, 256.0], [-500.0, -400.0, -300.0, -200.0], [384.0, 256.0, 900.0, 700.0],
+    [-100.0, 100.0, 500.0, 140.0], [200.0, -300.0, 230.0, 600.0], [0.0, 0.0, 384.0, 256.0],
+    [300.0, 180.0, 700.0, 500.0], [383.0, 255.0, 384.0, 256.0], [-1.0, -1.0, 0.0, 0.0],
+]], np.float32)
+
+
+@pytest.mark.parametrize("name", ["mix7", "mix14", "borders", "edges"])
+def test_k5_footprints_hold_every_touched_cell(name):
+    """K5 picks a tile's rois by their footprints (``roi_footprints``, the
+    plain twin of the kernel's rule): every cell to which the plain adjoint
+    adds a non-zero summand of a roi lies in that roi's footprint on its
+    level.  A cotangent of ones makes every summand >= 0, so the roi's
+    non-zero cells are exactly those with a non-zero summand."""
+    if name == "edges":
+        rois, out = EDGE_ROIS, 14
+    else:
+        _, rois, out = _case(name)
+    lvl, y0, y1, x0, x1 = roi_footprints(torch.from_numpy(rois), SHAPES, out)
+    flat = torch.from_numpy(rois).reshape(1, -1, 4)
+    touched = 0
+    for i in range(flat.shape[1]):
+        adj = multilevel_roi_align_adjoint(torch.ones((1, 1, out, out, 1)), flat[:, i:i + 1],
+                                           SHAPES)
+        for level, a in enumerate(adj):
+            ys, xs = np.nonzero(a[0, :, :, 0].numpy())
+            if level != int(lvl[i]):
+                assert len(ys) == 0, f"roi {i} touches level {level}, not its own"
+                continue
+            touched += len(ys) > 0
+            assert ((ys >= int(y0[i])) & (ys <= int(y1[i])) & (xs >= int(x0[i]))
+                    & (xs <= int(x1[i]))).all(), f"roi {i}: a cell outside its footprint"
+    assert touched >= flat.shape[1] - (2 if name == "edges" else 0)
 
 
 def test_roi_align_function_gradcheck_float64():

@@ -1,9 +1,10 @@
-"""Time kernels K1 (fused stem), K2 (exact RoIAlign), K4 (pairwise scorer),
-K6 and K7 (window RoIAlign) of a tree of the PyTorch port on one GPU, so
-that two trees can be compared in one call.
+"""Time kernels K1 (fused stem), K2 (exact RoIAlign), K3 (temporal
+aggregation), K4 (pairwise scorer), K5 (RoIAlign adjoint), K6 and K7 (window
+RoIAlign) of a tree of the PyTorch port on one GPU, so that two trees can be
+compared in one call.
 
     python3 tools/time_k2_k4.py [--root DIR] [--tiles] [--trace] [--reps 20]
-        [--only k1,k2,k4,k6,k7] [--out build/time_k2_k4.json]
+        [--only k1,k2,k3,k4,k5,k6,k7] [--out build/time_k2_k4.json]
 
 ``--root`` names the checkout whose ``seam_match_rcnn_tpu_torch`` is
 imported (default: this one); its kernels build under ``DIR/build/``.  On
@@ -25,16 +26,22 @@ shapes of ``chip_smoke.py``:
 * K4 ``cuda_kernels.pairwise_scores`` at 1 x 16, 1 x 1000 and 1000 x 1000,
   with ``torch.mm`` of the same operands (the cuBLAS GEMM of the matmul
   expansion) beside it;
+* K5 ``cuda_roi_align.roi_align_adjoint`` at the training shapes (f32
+  cotangents of 8 x 512 rois at 7x7 and 8 x 128 at 14x14 -> the gradient of
+  a bf16 pyramid of 800x1344 canvases), with whether two calls give equal
+  bytes;
+* K3 ``cuda_kernels.nlb_aggregate`` at S = 1 and S = 64 tracks of T = 10
+  frames (the serving and eval calls) and at S = 7, T = 32;
 * with ``--tiles`` (a tree whose K4 takes its tile rows), K4 at each tile
   at every Q it can take among 1, 16, 64, 100, 300 and 1000 (against 1000
   gallery rows), through the library's entry point (with
   ``--trace``, each with its device time per call from a profiler trace);
-* with ``--trace``, at each K1 input, each K4 shape, K2's first shape and
-  each K6/K7 shape: the device time per call of each CUDA kernel that a
+* with ``--trace``, at each K1 input, each K3, K4 and K5 shape, K2's first
+  shape and each K6/K7 shape: the device time per call of each CUDA kernel that a
   torch.profiler trace shows (so a wrapper's own kernel stands apart from
   the casts or geometry ops it launches), and for K1, K4, K6 and K7 the
   host's time to enqueue one call (host clock over many calls, before the
-  synchronize); for K4 also that of ``torch.mm`` and of ``torch.empty`` of
+  synchronize; not for K2); for K4 also that of ``torch.mm`` and of ``torch.empty`` of
   the output, and, with ``--tiles``, of the library's entry point called
   with ready arguments.
 
@@ -132,7 +139,7 @@ def main() -> None:
     ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="k1,k2,k4,k6,k7",
+    ap.add_argument("--only", default="k1,k2,k3,k4,k5,k6,k7",
                     help="comma-separated kernels to time")
     ap.add_argument("--out", default="build/time_k2_k4.json")
     args = ap.parse_args()
@@ -142,7 +149,8 @@ def main() -> None:
     from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem, native
     from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
     from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
-    from seam_match_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
+    from seam_match_rcnn_tpu_torch.ops.roi_align import (multilevel_roi_align,
+                                                          multilevel_roi_align_adjoint)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,8 +158,8 @@ def main() -> None:
     only = set(args.only.split(","))
     rng = np.random.RandomState(0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    report = {"root": str(Path(args.root).resolve()), "k1": [], "k2": [], "k4": [],
-              "k4_tiles": [], "k6": [], "k7": [], "trace": []}
+    report = {"root": str(Path(args.root).resolve()), "k1": [], "k2": [], "k3": [], "k4": [],
+              "k4_tiles": [], "k5": [], "k6": [], "k7": [], "trace": []}
 
     if "k1" in only:
         x = torch.from_numpy(rng.randn(11, 3, 800, 1344).astype(np.float32)).to(dev)
@@ -240,6 +248,46 @@ def main() -> None:
             if kind == "k7":
                 del q, scales
         del base
+
+    for b, n, o in ((8, 512, 7), (8, 128, 14)):
+        if "k5" not in only:
+            break
+        rois = rois_for(rng, b, n).to(dev)
+        g = torch.randn((b, n, o, o, 256), generator=gen, device=dev)
+        call = lambda: cuda_roi_align.roi_align_adjoint(  # noqa: E731
+            g, rois, PYRAMID, torch.bfloat16)
+        got, again = call(), call()
+        err = max(max_err(a.permute(0, 2, 3, 1), w)
+                  for a, w in zip(got, multilevel_roi_align_adjoint(g, rois, PYRAMID)))
+        row = {"shape": f"{b}x{n} rois {o}x{o} -> bf16 pyramid", "max_abs_err": err,
+               "deterministic": all(torch.equal(a, z) for a, z in zip(got, again)),
+               "ms": median_ms(call, args.reps)}
+        del got, again
+        report["k5"].append(row)
+        if args.trace:
+            report["trace"].append({"kernel": "K5", "shape": row["shape"],
+                                    "device_us": device_us(call, 5),
+                                    "host_us": host_us(call, 20)})
+        del g
+
+    if "k3" in only:
+        d = lambda i, o: torch.from_numpy(  # noqa: E731
+            (rng.randn(i, o) / np.sqrt(i)).astype(np.float32)).to(dev)
+        v = lambda o: torch.from_numpy((rng.randn(o) * 0.1).astype(np.float32)).to(dev)  # noqa
+        p = {"theta_w": d(256, 128), "theta_b": v(128), "phi_w": d(256, 128), "phi_b": v(128),
+             "g_w": d(256, 128), "g_b": v(128), "wcat": v(256), "wz_w": d(128, 256),
+             "wz_b": v(256), "att_w": v(256), "att_b": v(1)}
+        for s, t in ((1, 10), (64, 10), (7, 32)):
+            mask = torch.from_numpy(np.arange(t)[None] < rng.randint(1, t + 1, (s, 1))).to(dev)
+            seqs = torch.from_numpy(rng.randn(s, t, 256).astype(np.float32)).to(dev)
+            seqs = seqs * mask[..., None]
+            call = lambda: cuda_kernels.nlb_aggregate(seqs, mask, p)  # noqa: E731
+            row = {"shape": f"S={s} T={t}", "ms": median_ms(call, 5 * args.reps),
+                   "max_abs_err": max_err(call(), cuda_kernels.nlb_aggregate_plain(seqs, mask, p))}
+            report["k3"].append(row)
+            if args.trace:
+                report["trace"].append({"kernel": "K3", "shape": row["shape"],
+                                        "device_us": device_us(call), "host_us": host_us(call)})
 
     w, bias = (torch.from_numpy((rng.randn(2, 256) * 0.05).astype(np.float32)).to(dev),
                torch.from_numpy(rng.randn(2).astype(np.float32)).to(dev))
