@@ -34,9 +34,21 @@ Phases, one line each:
                street/shop batches: two warm-up steps, then 4 timed steps,
                alternating mixed orientations (the two-bucket path) and a
                single orientation (the fused path); then one step with the
-               "pallas" RoIAlign backend (K6 forward, K5 backward).
-For phases 3, 3b and 4 the launch counters are zeroed right before each
-path and read right after; every kernel of the path must have run.  Then the card's name
+               "pallas" RoIAlign backend (K6 forward, K5 backward);
+  5. seam    - phase-2 SEAM training at full width: the video serving model
+               (seeded random weights, its aggregator warm-started from the
+               match predictor) through train_one_epoch_movingfashion (16
+               products x (1 shop + 10 frames), epoch 1) and
+               train_one_epoch_multidf2 (8 x (1 + 10)), one warm-up and 3
+               timed product batches each: the frozen detector's inference
+               (K1, K2) with the RoI features kept on the card, the host
+               selection, one head step per batch; inference and head-step
+               ms, rows, peak memory, losses; one head step of each redone
+               on the CPU and held against the card's update; the MultiDF2
+               loop must leave the match predictor bit-equal.
+For phases 3, 3b, 4 and 5 the launch counters are zeroed right before each
+path and read right after; every kernel of the path must have run (and on
+the seam paths K3, K4 and K5 must not).  Then the card's name
 and power limit, a JSON line of per-kernel results, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without that
 line.  There is no CPU fallback.
@@ -45,6 +57,7 @@ line.  There is no CPU fallback.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import shutil
 import statistics
@@ -58,8 +71,10 @@ import torch
 
 import torch.nn.functional as F
 
-from seam_match_rcnn_tpu_torch.config import (EvalConfig, RoIHeadsConfig, TrainConfig,
-                                              TransformConfig, serving_model_config)
+from seam_match_rcnn_tpu_torch.ckpt.torch_convert import clone_match_to_aggregator
+from seam_match_rcnn_tpu_torch.config import (EvalConfig, RoIHeadsConfig, SEAMTrainConfig,
+                                              TrainConfig, TransformConfig,
+                                              serving_model_config)
 from seam_match_rcnn_tpu_torch.eval import movingfashion, multidf2
 from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix
 from seam_match_rcnn_tpu_torch.eval.runner import InferenceRunner
@@ -72,8 +87,12 @@ from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
 from seam_match_rcnn_tpu_torch.ops.roi_align import (SPATIAL_SCALES, multilevel_roi_align,
                                                       multilevel_roi_align_adjoint)
 from seam_match_rcnn_tpu_torch.serving import SeamRetrieval
-from seam_match_rcnn_tpu_torch.train.engine import train_one_epoch_matchrcnn
-from seam_match_rcnn_tpu_torch.train.optim import multistep_warmup_schedule, sgd
+from seam_match_rcnn_tpu_torch.train.engine import (train_one_epoch_matchrcnn,
+                                                     train_one_epoch_movingfashion,
+                                                     train_one_epoch_multidf2)
+from seam_match_rcnn_tpu_torch.train.optim import SGD, multistep_warmup_schedule, sgd
+from seam_match_rcnn_tpu_torch.train.seam import (compare_head_updates, make_mdf2_head_step,
+                                                  make_seam_head_step)
 from seam_match_rcnn_tpu_torch.train.steps import Phase1Trainer
 
 KERNELS = {
@@ -104,6 +123,8 @@ EVAL_ROI_KERNEL = {"pallas_resident": "roi_align", "pallas": "roi_align_patch",
                    "pallas_int8": "roi_align_patch_int8"}
 EVAL_PATH = ("fused_stem", "nlb_aggregate", "pairwise_scores")
 TRAIN_PALLAS_PATH = ("fused_stem", "roi_align_patch", "roi_align_adjoint")
+SEAM_PATH = ("fused_stem", "roi_align")  # the frozen detector's inference
+SEAM_IDLE = ("nlb_aggregate", "pairwise_scores", "roi_align_adjoint")  # no K3, K4, K5 there
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -923,6 +944,286 @@ def phase_train_pallas(dev):
     return launches, timed.times[0] * 1e3, peak_gb, losses
 
 
+class Timed:
+    """A phase-2 runner and head step with a synchronised host clock around
+    each call; it also keeps the bytes of the RoI features each inference
+    hands the step and the boxes that pass ``score_thresh``; ``capture`` (a
+    step index) keeps that step's batch and the heads' and optimizer's
+    state before it, for the CPU redo."""
+
+    def __init__(self, runner, step, heads, capture, score_thresh):
+        self.runner, self.step, self.heads, self.capture = runner, step, heads, capture
+        self.optimizer, self.score_thresh = step.optimizer, score_thresh
+        self.infer_s, self.step_s, self.losses, self.rows, self.shops = [], [], [], [], []
+        self.roi_bytes, self.candidates = [], []
+        self.captured = None
+
+    def run(self, images, device_keys=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, dev = self.runner.run(images, device_keys)
+        torch.cuda.synchronize()
+        self.infer_s.append(time.perf_counter() - t0)
+        self.roi_bytes.append(nbytes(dev["roi_features"]))
+        self.candidates.append(sum(int(((o["scores"] >= self.score_thresh) & o["valid"]).sum())
+                                   for o in outs))
+        return outs, dev
+
+    def __call__(self, batch):
+        if len(self.step_s) == self.capture:
+            rows = batch["roi_src"][batch["row_img"].long(), batch["row_det"].long()]
+            host = {k: v.cpu() for k, v in batch.items() if k != "roi_src"}
+            host["roi_src"] = rows.cpu()[None]  # the gathered rows, as one image
+            host["row_img"] = torch.zeros_like(host["row_img"])
+            host["row_det"] = torch.arange(rows.shape[0], dtype=host["row_det"].dtype)
+            self.captured = dict(batch=host, before=[head_state(m) for m in self.heads],
+                                 opt=copy.deepcopy(self.optimizer.optimizer.state_dict()),
+                                 count=self.optimizer.count)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.step(batch)
+        torch.cuda.synchronize()
+        self.step_s.append(time.perf_counter() - t0)
+        self.losses.append({k: float(v) for k, v in out.items()})
+        self.rows.append(int(batch["valid"].sum()) if "valid" in batch else
+                         int(batch["seq_mask"].sum() + (batch["shop_row"] >= 0).sum()))
+        self.shops.append(int((batch["shop_row"] >= 0).sum()))
+        if self.captured is not None and "after" not in self.captured:
+            self.captured["after"] = [head_state(m) for m in self.heads]
+        return out
+
+
+def head_state(module):
+    """Every parameter and buffer of a head, copied to the host."""
+    return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def cpu_redo(captured, make_step, heads, schedule):
+    """The captured head step again on the CPU in f32, from the same heads,
+    optimizer state and rows; the card's update against it by
+    ``compare_head_updates`` (the rule of the CPU step tests).  Returns (the
+    parameters and statistics outside their limit, the worst parameter
+    update's error over its size, the CPU losses, the seconds it took)."""
+    t0 = time.perf_counter()
+    mods = []
+    for m, before in zip(heads, captured["before"]):
+        c = copy.deepcopy(m).cpu()
+        c.load_state_dict(before)
+        mods.append(c)
+    opt = SGD([p for c in mods for p in c.parameters()], schedule, SEAMTrainConfig().momentum,
+              SEAMTrainConfig().weight_decay)
+    opt.optimizer.load_state_dict(captured["opt"])
+    opt.count = captured["count"]
+    losses = {k: float(v) for k, v in make_step(mods, opt)(captured["batch"]).items()}
+
+    def flat(sds):
+        return {f"{i}.{k}": v for i, sd in enumerate(sds) for k, v in sd.items()}
+
+    bad, worst = compare_head_updates(flat(captured["before"]), flat(m.state_dict() for m in mods),
+                                      flat(captured["after"]))
+    return bad, worst, losses, time.perf_counter() - t0
+
+
+def seam_items(rng, n_products, frames, mdf2, first_id, noise):
+    """One product batch as the phase-2 samplers give it: per product a shop
+    image (sizes of both orientations) and ``frames`` frames of one video
+    (landscape or portrait), uint8, a garment of the product's colour on
+    noise (one noise image per size, kept in ``noise``); MultiDF2 items
+    carry their GT key, styles, pair ids and box."""
+    shop_sizes = [(600, 800), (800, 600), (1024, 768), (640, 480), (720, 960)]
+    video_sizes = [(720, 1280), (1280, 720), (540, 960)]
+    items = []
+    for j in range(n_products):
+        p = first_id + j
+        color = rng.randint(80, 255, 3)
+        for tag, (h, w) in [(1, shop_sizes[p % 5])] + [(0, video_sizes[p % 3])] * frames:
+            if (h, w) not in noise:
+                noise[(h, w)] = rng.randint(0, 64, (h, w, 3)).astype(np.uint8)
+            img = noise[(h, w)].copy()
+            bh, bw = int(h * rng.uniform(0.3, 0.7)), int(w * rng.uniform(0.3, 0.7))
+            y, x = rng.randint(0, h - bh), rng.randint(0, w - bw)
+            img[y:y + bh, x:x + bw] = color
+            item = {"image": img, "tag": tag, "i": p}
+            if mdf2:
+                item.update(key=f"1_{p}", styles=np.asarray([1]), pair_ids=np.asarray([p]),
+                            boxes=np.asarray([[x, y, x + bw, y + bh]], np.float32))
+            items.append(item)
+    return items
+
+
+def phase_seam(dev):
+    """Phase-2 SEAM training at full width: the video serving model (seeded
+    random weights, warm-started through ``clone_match_to_aggregator``),
+    ``train_one_epoch_movingfashion`` over 16 products x (1 shop + 10
+    frames) and ``train_one_epoch_multidf2`` over 8 x (1 + 10), each one
+    warm-up batch and two drives:
+
+    * 3 timed batches in the one-row-per-image regime (the background logit
+      raised, see below) at the CLIs' learning rates / 40, checked for a
+      step each, finite losses, an MF aggregation loss > 0, and one step
+      redone on the CPU;
+    * one batch as the random detector scores it, at the CLIs' own learning
+      rates: many boxes an image, so the shop's largest-box pick, MultiDF2's
+      best-IoU pick and (MovingFashion) the cut at max_rows run; checked
+      for a step, finite losses and finite updated heads, which are then
+      put back."""
+    tc = SEAMTrainConfig()
+    model = serving_model(dev)
+    bias = model.roi_heads["box_predictor"].cls_score.bias
+    # the background logit raised by 10: no random box scores 0.1 any more,
+    # so each image's one row is the video model's whole-image fallback
+    # (score 0.1, which passes score_thresh) and all products reach the
+    # aggregation loss.  Unbiased, the random predictor scored many boxes
+    # a frame >= 0.1: 256 rows came from the first 1-2 products and their
+    # one-pair aggregation loss underflowed to 0 (H100, 16 x (1 + 10) images)
+    with torch.no_grad():
+        bias[0] += 10.0
+    clone_match_to_aggregator(model)
+    mp, ta = model.roi_heads["match_predictor"], model.roi_heads["temporal_aggregator"]
+    runner = InferenceRunner(model, chunk=tc.infer_chunk, with_match=False,
+                             with_aggr_features=False, with_roi_features=True)
+    steps, max_rows = 4, 256
+    n_frames = model.cfg.match.n_frames
+    rng, noise = np.random.RandomState(6), {}
+    launches, report = {}, {}
+    # the CLIs' batches (MultiDF2: 8 shops) and learning rates (0.04, 0.02);
+    # the timed batches run them / 40: from random heads the CLIs' own swing
+    # the scorers so far in a step that the next one's logits fall below the
+    # match threshold (no weak positive, an aggregation loss of exactly 0)
+    # or overflow
+    for name, n_products, mdf2, cli_lr in (("seam_mf", tc.n_shops, False, tc.lr),
+                                           ("seam_mdf2", 8, True, 0.02)):
+        heads = (ta,) if mdf2 else (mp, ta)
+
+        def optimizer(lr):
+            # the CLI's schedule at epoch 1 (the optimizer has taken an
+            # epoch's steps): no warmup
+            schedule = multistep_warmup_schedule(lr, tc.milestones, tc.gamma, steps,
+                                                 tc.warmup_iters, tc.warmup_factor)
+            opt = SGD([p for h in heads for p in h.parameters()], schedule, tc.momentum,
+                      tc.weight_decay)
+            opt.count = steps
+            return opt, schedule
+
+        if mdf2:
+            make_step = lambda mods, o: make_mdf2_head_step(mods[-1], o)  # noqa: E731
+            loop = train_one_epoch_multidf2
+            mp_before = head_state(mp)
+        else:
+            make_step = lambda mods, o: make_seam_head_step(  # noqa: E731
+                mods[0], mods[1], o, tc.frames_per_shop, n_frames)
+            loop = train_one_epoch_movingfashion
+        opt, schedule = optimizer(cli_lr / 40)
+        timed = Timed(runner, make_step(heads, opt), heads, 1, tc.score_thresh)
+        cli = Timed(runner, make_step(heads, optimizer(cli_lr)[0]), heads, None, tc.score_thresh)
+        data = [seam_items(rng, n_products, tc.frames_per_shop, mdf2, 100 * b, noise)
+                for b in range(5)]
+        kw = dict(n_products=n_products, frames_per_product=tc.frames_per_shop,
+                  score_thresh=tc.score_thresh, max_rows=max_rows, print_freq=100)
+        loop(timed, timed, data[:1], epoch=1, **kw)  # warm-up: cuDNN plans, allocator
+        for _, _, fn in KERNELS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        loop(timed, timed, data[1:4], epoch=1, **kw)
+        saved = [head_state(h) for h in heads]
+        with torch.no_grad():
+            bias[0] -= 10.0
+        loop(cli, cli, data[4:], epoch=1, **kw)
+        with torch.no_grad():
+            bias[0] += 10.0
+        launches[name] = {n: fn.launches for n, (_, _, fn) in KERNELS.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        cli_finite = all(bool(torch.isfinite(p).all()) for h in heads for p in h.parameters())
+        cli_moved = [not torch.equal(p.detach().cpu(), saved[i][k]) for i, h in enumerate(heads)
+                     for k, p in h.named_parameters()]
+        for h, sd in zip(heads, saved):
+            h.load_state_dict(sd)
+        # what the batching of one product batch holds at once: every
+        # image's f32 canvas, and the per-bucket torch.cat of them
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        canvases = runner.batches([it["image"] for it in data[-1]])
+        batching_gb = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        canvas_gb = sum(nbytes(b.pixels) for b in canvases) / 2**30
+        del canvases
+        infer_ms = [x * 1e3 for x in timed.infer_s[1:]]
+        step_ms = [x * 1e3 for x in timed.step_s[1:]]
+        losses = timed.losses[1:]
+        n_images = len(data[0])
+        roi_gb = max(timed.roi_bytes + cli.roi_bytes) / 2**30  # measured, this run
+        log(f"seam: {name}: {n_images} images a product batch; ms per batch (inference + head "
+            f"step): " + ", ".join(f"{a:.1f} + {b:.1f}" for a, b in zip(infer_ms, step_ms))
+            + f"; warm-up {timed.infer_s[0] * 1e3:.1f} + "
+            + (f"{timed.step_s[0] * 1e3:.1f}" if timed.step_s else "no step")
+            + f"; rows {timed.rows[1:]}, products with a shop row {timed.shops[1:]}; "
+            f"peak memory {peak_gb:.2f} GiB (RoI features {roi_gb:.2f} GiB; batching alone "
+            f"{batching_gb:.2f} GiB above the rest, canvases {canvas_gb:.2f} GiB); "
+            f"launches {launches[name]}")
+        for i, lf in enumerate(losses):
+            log(f"seam: {name} step {i}: " + ", ".join(f"{k}={v:.4f}" for k, v in lf.items()))
+        log(f"seam: {name}: the unbiased batch at lr {cli_lr}: "
+            + (f"{cli.infer_s[0] * 1e3:.1f} + {cli.step_s[0] * 1e3:.1f} ms, "
+               f"{cli.candidates[0]} boxes >= {tc.score_thresh}, rows {cli.rows[0]} "
+               f"(max_rows {max_rows}), products with a shop row {cli.shops[0]}; "
+               + ", ".join(f"{k}={v:.4f}" for k, v in cli.losses[0].items())
+               if cli.step_s else "no step"))
+        # the video model's whole-image fallback (score 0.1) is what passes
+        # score_thresh (the background bias above): every image has a row,
+        # so every batch must take a step
+        if len(step_ms) != 3 or len(infer_ms) != 3:
+            raise SystemExit(f"seam: {name}: {len(step_ms)} of 3 timed batches took a step")
+        if not all(np.isfinite(v) for lf in losses for v in lf.values()):
+            raise SystemExit(f"seam: {name}: a loss is not finite")
+        if not mdf2 and not all(lf["aggregation_loss"] > 0 for lf in losses):
+            raise SystemExit(f"seam: {name}: the aggregation loss is not > 0")
+        # unbiased, the random detector passes many boxes an image: the
+        # multi-box picks run, and MovingFashion's rows are cut at max_rows
+        if len(cli.step_s) != 1:
+            raise SystemExit(f"seam: {name}: the unbiased batch took no step")
+        if not all(np.isfinite(v) for v in cli.losses[0].values()) or not cli_finite:
+            raise SystemExit(f"seam: {name}: the unbiased batch's losses or heads are not finite")
+        if not any(cli_moved):
+            raise SystemExit(f"seam: {name}: the unbiased batch's step moved no parameter")
+        if cli.candidates[0] <= len(data[4]):
+            raise SystemExit(f"seam: {name}: the unbiased batch passed {cli.candidates[0]} boxes "
+                             f"for {len(data[4])} images: no multi-box selection ran")
+        if not mdf2 and cli.rows[0] != max_rows:
+            raise SystemExit(f"seam: {name}: the unbiased batch's {cli.rows[0]} rows were not "
+                             f"cut at max_rows {max_rows}")
+        missing = [n for n in SEAM_PATH if launches[name][n] == 0]
+        idle = [n for n in SEAM_IDLE if launches[name][n] != 0]
+        if missing or idle:
+            raise SystemExit(f"seam: {name}: never launched {missing}; launched {idle}")
+        if mdf2:
+            after = head_state(mp)
+            changed = [k for k, v in mp_before.items() if not torch.equal(v, after[k])]
+            if changed:
+                raise SystemExit(f"seam: {name}: the frozen match predictor changed: {changed}")
+        bad, worst, cpu_losses, cpu_s = cpu_redo(timed.captured, make_step, heads, schedule)
+        gpu_losses = losses[0]
+        bad += [k for k in gpu_losses
+                if abs(cpu_losses[k] - gpu_losses[k]) > 1e-4 * abs(cpu_losses[k]) + 1e-7]
+        log(f"seam: {name}: the first timed head step redone on the CPU in f32 ({cpu_s:.1f} s): "
+            f"worst parameter update {worst:.3g} of its norm (limit 5e-3), losses "
+            + ", ".join(f"{k} {gpu_losses[k]:.6f} / {cpu_losses[k]:.6f}" for k in gpu_losses)
+            + (" (card / CPU); the match predictor bit-equal" if mdf2 else " (card / CPU)"))
+        if bad:
+            raise SystemExit(f"seam: {name}: the card's head update disagrees with the CPU's: "
+                             f"{bad[:5]}")
+        report[name] = {"images_per_batch": n_images, "inference_ms": infer_ms,
+                        "head_step_ms": step_ms, "rows": timed.rows[1:],
+                        "products": timed.shops[1:], "peak_gib": peak_gb,
+                        "batching_gib": batching_gb, "roi_features_gib": roi_gb,
+                        "losses": losses, "cpu_worst_update_err": worst,
+                        "unbiased": {"inference_ms": cli.infer_s[0] * 1e3,
+                                     "head_step_ms": cli.step_s[0] * 1e3,
+                                     "boxes": cli.candidates[0], "rows": cli.rows[0],
+                                     "products": cli.shops[0], "losses": cli.losses[0]}}
+        del timed, cli
+        torch.cuda.empty_cache()
+    return launches, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -948,6 +1249,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["train_pallas"], pallas_step_ms, pallas_peak_gb, pallas_losses = phase_train_pallas(
         dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    seam_launches, seam_report = phase_seam(dev)
+    log(f"seam: phase 5 took {time.perf_counter() - t0:.1f} s")
+    paths.update(seam_launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -965,7 +1271,8 @@ def main() -> int:
         "serving_peak_gib": serve_peak_gb, "eval": eval_report, "train_step_ms": step_ms,
         "train_step_buckets": step_buckets, "train_peak_gib": train_peak_gb,
         "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
-        "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses}))
+        "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses,
+        "seam": seam_report}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

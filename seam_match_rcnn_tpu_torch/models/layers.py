@@ -9,6 +9,8 @@ torchvision's parameter names.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -19,8 +21,9 @@ class Conv2d(nn.Conv2d):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``dtype``: compute in it instead of ``compute_dtype``."""
+        dt = dtype or self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
                         self.dilation, self.groups)

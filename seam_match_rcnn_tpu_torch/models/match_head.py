@@ -1,4 +1,4 @@
-"""Match head and SEAM temporal aggregation (inference).
+"""Match head and SEAM temporal aggregation.
 
 Port of ``seam_match_rcnn_tpu/models/match_head.py`` with the reference's
 module names (``conv_seq``, ``linear``, ``last``, ``attention_scorer``,
@@ -6,12 +6,14 @@ module names (``conv_seq``, ``linear``, ``last``, ``attention_scorer``,
 trunk in ``trunk_dtype``; the BatchNorm, the NLB, the attention pooling and
 the pairwise scorer are f32.  ``TemporalAggregator.aggregate`` runs kernel
 K3 (``ops/cuda_kernels.nlb_aggregate``) for ``nlb_backend="pallas"`` and
-``NonLocalBlock1D`` plus attention pooling as torch ops for ``"xla"``.
+``NonLocalBlock1D`` plus attention pooling as torch ops for ``"xla"``; the
+phase-2 head step (``train/seam.py``) asks for ``"xla"`` and f32 convs
+whatever the model was built with, as the JAX step builds its own heads.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -70,10 +72,13 @@ class MatchTrunk(nn.Module):
         self.conv_seq = nn.Sequential(*layers)
         self.linear = nn.Sequential(nn.Linear(1024, 256), MaskedBatchNorm1d(256))
 
-    def descriptors(self, x: torch.Tensor, valid=None, train: bool = False) -> torch.Tensor:
+    def descriptors(self, x: torch.Tensor, valid=None, train: bool = False,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """x [N, 256, 14, 14] -> [N, 256] f32.  ``train``: BatchNorm over this
-        batch's ``valid`` rows (all rows when None), as the JAX ``train=True``."""
-        x = self.conv_seq(x)
+        batch's ``valid`` rows (all rows when None), as the JAX ``train=True``.
+        ``dtype``: the convs compute in it instead of the trunk dtype."""
+        for layer in self.conv_seq:
+            x = layer(x, dtype) if isinstance(layer, Conv2d) else layer(x)
         # the 6x6 mean and the projection stay f32 whatever the trunk dtype
         x = F.relu(x.to(torch.float32).mean(dim=(2, 3)))
         return self.linear[1](self.linear[0](x), valid=valid, train=train)
@@ -153,11 +158,13 @@ class TemporalAggregator(MatchTrunk):
             "att_w": self.attention_scorer.weight[0], "att_b": self.attention_scorer.bias,
         }
 
-    def aggregate(self, seqs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def aggregate(self, seqs: torch.Tensor, mask: torch.Tensor,
+                  nlb_backend: Optional[str] = None) -> torch.Tensor:
         """seqs [S, T, 256] per-frame descriptors; mask [S, T] valid frames
-        -> [S, 256] video descriptors."""
+        -> [S, 256] video descriptors.  ``nlb_backend`` overrides the
+        module's: training passes "xla", since K3 has no backward."""
         mask = mask.to(torch.bool)
-        if self.nlb_backend == "pallas":
+        if (nlb_backend or self.nlb_backend) == "pallas":
             return nlb_aggregate(seqs, mask, self.nlb_weights())
         z = self.newnlb(seqs.to(torch.float32), mask)
         att = self.attention_scorer(z)[..., 0]

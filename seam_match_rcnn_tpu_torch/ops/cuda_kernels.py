@@ -63,7 +63,18 @@ def nlb_aggregate(seqs: torch.Tensor, mask: torch.Tensor,
     """Fused TemporalAggregator.aggregate: seqs [S, T, 256], mask [S, T] ->
     [S, 256] f32.  CPU tensors take the plain version; the kernel (a
     cluster of 8 blocks a track) takes C = 256, T <= 32, and seqs and the
-    four weight matrices 16-byte aligned."""
+    four weight matrices 16-byte aligned.
+
+    The kernel has no backward (nor has the JAX kernel it replaces), so a
+    call that autograd would have to differentiate raises on every device
+    rather than return an output cut from the graph: train through
+    ``TemporalAggregator.aggregate(..., nlb_backend="xla")``."""
+    if torch.is_grad_enabled() and (seqs.requires_grad
+                                    or any(p[k].requires_grad for k in p)):
+        raise RuntimeError(
+            "nlb_aggregate (kernel K3) has no backward, and seqs or an NLB weight requires "
+            "grad: aggregate through the torch ops (TemporalAggregator.aggregate(..., "
+            "nlb_backend='xla')), or call it under torch.no_grad()")
     if seqs.device.type == "cpu":
         return nlb_aggregate_plain(seqs, mask, p)
     if not all(k in p for k in NLB_KEYS):

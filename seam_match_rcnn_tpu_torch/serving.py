@@ -3,6 +3,7 @@
 Port of ``seam_match_rcnn_tpu/serving.py``:
 
     retr = SeamRetrieval(model)                          # model holds its weights
+    retr = SeamRetrieval.from_checkpoint("model.pth")    # or from a torch file
     gallery = retr.build_gallery(shop_images)            # once
     result = retr.retrieve(video_frames, gallery, k=5)   # per query video
 
@@ -19,11 +20,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .config import EvalConfig
+from .ckpt.torch_convert import load_pretrained_detector
+from .config import EvalConfig, ModelConfig, serving_model_config
 from .eval.gallery import score_matrix
 from .eval.runner import InferenceRunner
 from .eval.tracking import build_tracklets
-from .models.matchrcnn import MatchRCNN
+from .models.matchrcnn import MatchRCNN, init_model
 
 
 @dataclasses.dataclass
@@ -68,6 +70,21 @@ class SeamRetrieval:
         self._b = heads["match_predictor"].last.bias.detach()
         self._aw = heads["temporal_aggregator"].last.weight.detach()
         self._ab = heads["temporal_aggregator"].last.bias.detach()
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None,
+                        cfg_eval: Optional[EvalConfig] = None, device=None,
+                        **kw) -> "SeamRetrieval":
+        """Serve a torch checkpoint (a file with the reference's key names):
+        the video model of ``cfg`` (the serving profile by default) on
+        ``device`` (the card unless asked otherwise), its aggregator
+        warm-started from the match predictor, with the JAX converter's
+        fresh NLB and attention, when the file has none;
+        ``cfg_eval`` becomes the instance's retrieval ``cfg``.  The JAX
+        package's Orbax directories wait for the port's ``ckpt/io``."""
+        model = init_model(cfg or serving_model_config(), video=True, device=device)
+        load_pretrained_detector(path, model, clone_match_to_aggregator=False)
+        return cls(model, cfg=cfg_eval, **kw)
 
     def _best_box(self, out) -> Optional[int]:
         keep = np.nonzero((out["scores"] >= self.cfg.score_threshold) & out["valid"])[0]

@@ -1,10 +1,21 @@
-"""The phase-1 epoch loop.
+"""The epoch loops of phase 1 and phase 2.
 
-Port of ``seam_match_rcnn_tpu/train/engine.py``'s
-``train_one_epoch_matchrcnn``: each batch of (images, targets, ids) is
-resized on the device and split into canvas buckets by orientation, its GT
-is padded to ``g_max`` per image, and ``Phase1Trainer.step`` makes one
-update for the whole batch.  A non-finite loss raises (the reference exits).
+Port of ``seam_match_rcnn_tpu/train/engine.py``.
+
+``train_one_epoch_matchrcnn`` (phase 1): each batch of (images, targets,
+ids) is resized on the device and split into canvas buckets by orientation,
+its GT is padded to ``g_max`` per image, and ``Phase1Trainer.step`` makes
+one update for the whole batch.
+
+``train_one_epoch_movingfashion`` and ``train_one_epoch_multidf2`` (phase
+2, SEAM): each product batch runs the frozen detector through an
+``InferenceRunner`` that keeps the RoI features on the device (under
+``torch.no_grad``, not ``inference_mode``: the head step's backward saves
+tensors gathered from them), selects rows on the host, and takes one head
+step (``train/seam.py``).  A batch without a usable selection counts but
+takes no step, so that a resume's skipped batches stay aligned.
+
+A non-finite loss raises (the reference exits).
 
 GT boxes are scaled with their image (torchvision's
 ``GeneralizedRCNNTransform`` does the same): each image's boxes are
@@ -24,6 +35,7 @@ import torch
 
 from ..models.transform import batch_images
 from ..utils.logging import MetricLogger, ScalarWriter
+from .seam import select_rows_host
 
 
 class NonFiniteLossError(RuntimeError):
@@ -105,3 +117,187 @@ def train_one_epoch_matchrcnn(model, trainer, data: Iterable[Tuple[List[np.ndarr
             for k, v in lf.items():
                 writer.add_scalar(k, v, global_step=trainer.optimizer.count)
     return lf
+
+
+def _mf_batch_to_images(items: List[Dict]) -> Tuple[List[np.ndarray], List[int], List[int]]:
+    """A product batch -> images, tags (1 shop, 0 street) and each image's
+    product as a dense index 0..P-1 in order of first appearance."""
+    images = [it["image"] for it in items]
+    tags = [int(it["tag"]) for it in items]
+    prods = [int(it["i"]) for it in items]
+    uniq = {p: n for n, p in enumerate(dict.fromkeys(prods))}
+    return images, tags, [uniq[p] for p in prods]
+
+
+def _phase2_epoch(runner, data: Iterable[List[Dict]], epoch: int, select, head_step,
+                  print_freq: int, writer: Optional[ScalarWriter], start_step: int,
+                  save_every_steps: int, save_fn) -> Dict[str, float]:
+    """The loop both phase-2 epochs share: ``select(outs, items, tags,
+    prods)`` -> a dict of host arrays for the step, or None to skip."""
+    logger = MetricLogger()
+    lf: Dict[str, float] = {}
+    count = start_step
+    for items in logger.log_every(data, print_freq, f"Epoch: [{epoch}]"):
+        images, tags, prods = _mf_batch_to_images(items)
+        with torch.no_grad():
+            outs, dev = runner.run(images, device_keys=("roi_features",))
+        sel = select(outs, items, tags, prods)
+        if sel is None:
+            # count consumed batches without a step, so that a mid-epoch
+            # resume's skipped batches stay aligned with the sampler
+            count += 1
+            continue
+        roi = dev["roi_features"]
+        batch = {k: torch.as_tensor(v, device=roi.device) for k, v in sel.items()}
+        batch["roi_src"] = roi
+        losses = head_step(batch)
+        lf = {k: float(v) for k, v in losses.items()}
+        _check_finite(lf, f"epoch {epoch} step {count}")
+        logger.update(**lf)
+        if writer is not None and count % print_freq == 0:
+            for k, v in lf.items():
+                writer.add_scalar(k, v, global_step=head_step.optimizer.count)
+        if save_fn is not None and save_every_steps > 0 and (count + 1) % save_every_steps == 0:
+            save_fn(count)
+        count += 1
+    return lf
+
+
+def train_one_epoch_movingfashion(runner, head_step, data: Iterable[List[Dict]], epoch: int,
+                                  n_products: int, frames_per_product: int,
+                                  score_thresh: float = 0.7, max_rows: int = 256,
+                                  print_freq: int = 20, writer: Optional[ScalarWriter] = None,
+                                  start_step: int = 0, save_every_steps: int = 0,
+                                  save_fn=None) -> Dict[str, float]:
+    """Phase-2 SEAM loop over MovingFashion product batches (engine.py:76-199).
+
+    ``data`` yields lists of items {"image": HWC [0, 1] or uint8, "tag": 1
+    shop / 0 street, "i": product id}.  ``runner`` is an ``InferenceRunner``
+    over the frozen detector with ``with_roi_features=True`` (the JAX CLI
+    also turns off the match and aggregator descriptors); ``head_step`` is
+    ``seam.make_seam_head_step``'s.  The aggregation loss weighs
+    min(epoch, 1) (engine.py:162).  ``save_fn(step_in_epoch)`` fires after
+    every ``save_every_steps`` batches (no reference equivalent); the
+    heads and the optimizer are the caller's, trained in place.  Returns
+    the last step's losses."""
+    def select(outs, items, tags, prods):
+        sel = select_rows_host(outs, tags, prods, score_thresh, n_products,
+                               frames_per_product, max_rows)
+        if sel is None:
+            return None
+        out = {k: getattr(sel, k) for k in ("row_img", "row_det", "valid", "types", "prod",
+                                            "img_slot", "shop_row")}
+        out["aggr_weight"] = np.float32(min(float(epoch), 1.0))
+        return out
+
+    return _phase2_epoch(runner, data, epoch, select, head_step, print_freq, writer,
+                         start_step, save_every_steps, save_fn)
+
+
+def _best_iou_rows_mdf2(
+    outs: List[Dict[str, np.ndarray]],
+    items: List[Dict],
+    prods: List[int],
+    score_thresh: float,
+    n_products: int,
+    frames_per_product: int,
+    max_rows: int,
+):
+    """MultiDF2 host selection (engine.py:258-295): within each image the
+    detection best overlapping the product's GT box represents the product;
+    shop images keep only that box; products whose shop has no detection are
+    excluded."""
+    from ..eval.multidf2 import box_iou_xywh
+
+    rows = []  # (img, det, tag, prod)
+    excluded = set()
+    seq_rows: Dict[int, List[int]] = {p: [] for p in range(n_products)}
+    shop_row = np.full((n_products,), -1, np.int32)
+
+    for i, (o, it, p) in enumerate(zip(outs, items, prods)):
+        if p in excluded:
+            continue
+        keep = np.nonzero((o["scores"] >= score_thresh) & o["valid"])[0]
+        if keep.size < 1:
+            if it["tag"] == 1:
+                excluded.add(p)
+            continue
+        style, pair_id = [int(x) for x in it["key"].split("_")]
+        gmask = (np.asarray(it["styles"]) == style) & (np.asarray(it["pair_ids"]) == pair_id)
+        if not gmask.any():
+            continue
+        gt_box = np.asarray(it["boxes"])[gmask][:1]
+        pb = o["boxes"][keep]
+        pb_xywh = np.concatenate([pb[:, :2], pb[:, 2:] - pb[:, :2]], 1)
+        gt_xywh = np.concatenate([gt_box[:, :2], gt_box[:, 2:] - gt_box[:, :2]], 1)
+        best = keep[int(np.argmax(box_iou_xywh(gt_xywh, pb_xywh)[0]))]
+        r = len(rows)
+        if r >= max_rows:
+            break
+        rows.append((i, int(best), it["tag"], p))
+        if it["tag"] == 1:
+            if shop_row[p] < 0:
+                shop_row[p] = r
+        else:
+            seq_rows[p].append(r)
+
+    # Drop rows of excluded products and REMAP the recorded row indices
+    # (seq_rows / shop_row hold pre-filter positions).  With the in-repo
+    # sampler a product's shop precedes its street frames, so exclusion
+    # always happens before any of its rows are appended and the filter is
+    # a no-op — but the function must not depend on batch item order.
+    remap: Dict[int, int] = {}
+    kept = []
+    for old, x in enumerate(rows):
+        if x[3] not in excluded:
+            remap[old] = len(kept)
+            kept.append(x)
+    rows = kept
+    if len(rows) < 2:
+        return None
+    k = max_rows
+    row_img = np.zeros((k,), np.int32)
+    row_det = np.zeros((k,), np.int32)
+    for r, (img, det, _, _) in enumerate(rows):
+        row_img[r] = img
+        row_det[r] = det
+    t = frames_per_product
+    seq_gather = np.zeros((n_products, t), np.int32)
+    seq_mask = np.zeros((n_products, t), bool)
+    for p, rws in seq_rows.items():
+        if p in excluded:
+            continue
+        for j, r in enumerate(rws[:t]):
+            seq_gather[p, j] = remap[r]
+            seq_mask[p, j] = True
+    for p in range(n_products):
+        if shop_row[p] >= 0 and p not in excluded:
+            shop_row[p] = remap[int(shop_row[p])]
+    for p in excluded:
+        shop_row[p] = -1
+        seq_mask[p] = False
+    return {
+        "row_img": row_img,
+        "row_det": row_det,
+        "shop_row": shop_row,
+        "seq_gather": seq_gather,
+        "seq_mask": seq_mask,
+    }
+
+
+def train_one_epoch_multidf2(runner, head_step, data: Iterable[List[Dict]], epoch: int,
+                             n_products: int, frames_per_product: int,
+                             score_thresh: float = 0.7, max_rows: int = 256,
+                             print_freq: int = 20, writer: Optional[ScalarWriter] = None,
+                             start_step: int = 0, save_every_steps: int = 0,
+                             save_fn=None) -> Dict[str, float]:
+    """Phase-2 loop over MultiDF2 product batches (engine.py:202-340): as
+    ``train_one_epoch_movingfashion``, with items that also carry the
+    image's GT ``key``, ``styles``, ``pair_ids`` and ``boxes``, the rows of
+    ``_best_iou_rows_mdf2`` and ``seam.make_mdf2_head_step``'s step."""
+    def select(outs, items, tags, prods):
+        return _best_iou_rows_mdf2(outs, items, prods, score_thresh, n_products,
+                                   frames_per_product, max_rows)
+
+    return _phase2_epoch(runner, data, epoch, select, head_step, print_freq, writer,
+                         start_step, save_every_steps, save_fn)

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's jax-free modules (config,
-anchors, tracking, prefetch, the numpy box IoU of ops/rle) agree with their
-originals: the port may not import them, so the copies must not drift."""
+anchors, tracking, prefetch, the numpy box IoU of ops/rle, the phase-2 host
+row selection) agree with their originals: the port may not import them,
+so the copies must not drift."""
 
 import dataclasses
 
@@ -64,3 +65,26 @@ def test_box_iou_xywh_copy_agrees():
     b[0] = a[0]
     b[1, 2:] = 0.0  # an empty box
     np.testing.assert_allclose(box_iou_xywh(a, b), jax_iou(a, b), rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("name", ["select_rows_host", "SelectedRows"])
+def test_phase2_row_selection_copy_agrees(name):
+    """train/seam.py's numpy selection is a verbatim copy."""
+    import inspect
+    from seam_match_rcnn_tpu.train import seam as jax_seam
+    from seam_match_rcnn_tpu_torch.train import seam
+    assert inspect.getsource(getattr(seam, name)) == inspect.getsource(getattr(jax_seam, name))
+
+
+def test_phase2_mdf2_row_selection_copy_agrees():
+    """train/engine.py's MultiDF2 host selection is a verbatim copy, but for
+    the module it imports the numpy box IoU from."""
+    import inspect
+    from seam_match_rcnn_tpu.train import engine as jax_engine
+    from seam_match_rcnn_tpu_torch.train import engine
+
+    def body(fn):
+        return [line for line in inspect.getsource(fn).splitlines()
+                if line.strip() not in ("from ..ops.rle import box_iou_xywh",
+                                        "from ..eval.multidf2 import box_iou_xywh")]
+    assert body(engine._best_iou_rows_mdf2) == body(jax_engine._best_iou_rows_mdf2)

@@ -20,6 +20,9 @@ from seam_match_rcnn_tpu_torch.ops.roi_align import (fpn_level_indices, multilev
                                                       multilevel_roi_align_adjoint,
                                                       roi_footprints)
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
+from seam_match_rcnn_tpu_torch.models.match_head import MatchPredictor, TemporalAggregator
+from seam_match_rcnn_tpu_torch.train import seam
+from seam_match_rcnn_tpu_torch.train.optim import SGD
 
 pytestmark = pytest.mark.cuda
 
@@ -627,3 +630,79 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
                                      torch.zeros((1, 4), device=card),
                                      torch.zeros((2, 4), device=card),
                                      torch.zeros(2, device=card))
+
+
+def test_nlb_kernel_refuses_a_call_that_needs_its_backward(card):
+    """K3 has no backward: with seqs or a weight that requires grad (grad
+    mode on) its wrapper raises, launching nothing, instead of returning an
+    output cut from the graph; under no_grad the same call launches."""
+    rng = np.random.RandomState(12)
+    ta = TemporalAggregator(torch.float32, nlb_backend="pallas").to(card)
+    seqs = torch.from_numpy(rng.randn(3, 5, 256).astype(np.float32)).to(card)
+    mask = torch.ones((3, 5), dtype=torch.bool, device=card)
+    n0 = cuda_kernels.nlb_aggregate.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ta.aggregate(seqs, mask)  # the weights are parameters
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_kernels.nlb_aggregate(seqs.clone().requires_grad_(True), mask,
+                                   {k: v.detach() for k, v in ta.nlb_weights().items()})
+    assert cuda_kernels.nlb_aggregate.launches == n0
+    with torch.no_grad():
+        served = ta.aggregate(seqs, mask)
+    assert cuda_kernels.nlb_aggregate.launches == n0 + 1
+    trained = ta.aggregate(seqs, mask, nlb_backend="xla")  # the training path: torch ops
+    assert trained.requires_grad
+    torch.testing.assert_close(trained.detach(), served, rtol=1e-5, atol=1e-5)
+
+
+def _seam_heads(rng):
+    """Both heads (f32 trunks) with every tensor drawn from ``rng``."""
+    mp, ta = MatchPredictor(torch.float32), TemporalAggregator(torch.float32, "pallas")
+    with torch.no_grad():
+        for mod in (mp, ta):
+            for name, t in list(mod.named_parameters()) + list(mod.named_buffers()):
+                if name.endswith("running_var"):
+                    t.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, t.shape).astype(np.float32)))
+                elif not name.endswith("num_batches_tracked"):
+                    scale = 1.0 / np.sqrt(t[0].numel()) if t.dim() >= 2 else 0.05
+                    t.copy_(torch.from_numpy((rng.randn(*t.shape) * scale).astype(np.float32)))
+    return mp, ta
+
+
+def test_seam_head_step_on_the_card_matches_the_cpu(card):
+    """One MovingFashion head step (64 rows of 4 products x (1 shop + 4
+    frames)) on the card and on the CPU from the same heads and rows: the
+    losses within rtol 1e-4, the updates by ``seam.compare_head_updates``
+    (each parameter's within 5e-3 of its norm, the BatchNorm statistics
+    within rtol 1e-4, atol 1e-5: the rule of the CPU step tests)."""
+    import copy
+
+    rng = np.random.RandomState(13)
+    n_img, d, p, t = 20, 6, 4, 4
+    outs = [{"scores": rng.uniform(0.3, 1.0, d).astype(np.float32), "valid": np.ones(d, bool),
+             "boxes": np.concatenate([rng.uniform(0, 50, (d, 2)), rng.uniform(60, 120, (d, 2))],
+                                     1).astype(np.float32)} for _ in range(n_img)]
+    sel = seam.select_rows_host(outs, [1, 0, 0, 0, 0] * p, [i // 5 for i in range(n_img)], 0.5,
+                                p, t, 64)
+    batch = {k: torch.from_numpy(getattr(sel, k)) for k in (
+        "row_img", "row_det", "valid", "types", "prod", "img_slot", "shop_row")}
+    batch["roi_src"] = torch.from_numpy((rng.randn(n_img, d, 256, 14, 14)
+                                         + 2.0 * rng.randn(n_img, d, 256, 1, 1)).astype(np.float32))
+    batch["aggr_weight"] = torch.tensor(1.0)
+    heads = {}
+    for dev in ("cpu", card):
+        mp, ta = _seam_heads(np.random.RandomState(14))
+        mp, ta = mp.to(dev), ta.to(dev)
+        before = [copy.deepcopy(m.state_dict()) for m in (mp, ta)]
+        opt = SGD(list(mp.parameters()) + list(ta.parameters()), lambda s: 0.002, 0.9, 5e-4)
+        step = seam.make_seam_head_step(mp, ta, opt, frames_per_product=t)
+        losses = step({k: v.to(dev) for k, v in batch.items()})
+        heads[str(dev)] = (losses, before, [m.state_dict() for m in (mp, ta)])
+    (cpu_l, cpu_b, cpu_a), (gpu_l, _, gpu_a) = heads["cpu"], heads[str(card)]
+    for k in cpu_l:
+        assert float(gpu_l[k]) == pytest.approx(float(cpu_l[k]), rel=1e-4), k
+    def both(sds):
+        return {f"{name}.{k}": v for name, sd in zip(("mp", "ta"), sds) for k, v in sd.items()}
+
+    bad, _ = seam.compare_head_updates(both(cpu_b), both(cpu_a), both(gpu_a))
+    assert not bad, bad
