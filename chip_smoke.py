@@ -45,10 +45,23 @@ Phases, one line each:
                selection, one head step per batch; inference and head-step
                ms, rows, peak memory, losses; one head step of each redone
                on the CPU and held against the card's update; the MultiDF2
-               loop must leave the match predictor bit-equal.
-For phases 3, 3b, 4 and 5 the launch counters are zeroed right before each
-path and read right after; every kernel of the path must have run (and on
-the seam paths K3, K4 and K5 must not).  Then the card's name
+               loop must leave the match predictor bit-equal;
+  6. serve   - the serving entry points at full width (the model of phase
+               3): SeamRetrieval.detect with masks on 4 frames of 720x1280
+               and 1 of 1280x720 (masks pasted at the original size on the
+               card, [D, H, W] f32 on the host), timed as a whole and step
+               by step (forward, paste, copy), 8 rows a frame repasted on
+               the CPU from the card's own 28x28 probabilities and boxes
+               (within 1e-5), every mask 0 outside its box, the RLE of
+               detections_json decoded back; then cli.serve.main in process
+               on a synthetic MovingFashion fixture (--synthetic with the
+               host ingest and with --device_ingest, --detect on its
+               video) and its HTTP server (/healthz, /v1/products, twice
+               each of /v1/query and /v1/detect).
+For phases 3 to 6 the launch counters are zeroed right before each path
+and read right after; every kernel of the path must have run (on the seam
+paths K3, K4 and K5 must not; on the serve paths K5-K7 must not, nor K3
+and K4 on a detect path).  Then the card's name
 and power limit, a JSON line of per-kernel results, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without that
 line.  There is no CPU fallback.
@@ -58,12 +71,16 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -72,21 +89,24 @@ import torch
 import torch.nn.functional as F
 
 from seam_match_rcnn_tpu_torch.ckpt.torch_convert import clone_match_to_aggregator
+from seam_match_rcnn_tpu_torch.cli import serve
 from seam_match_rcnn_tpu_torch.config import (EvalConfig, RoIHeadsConfig, SEAMTrainConfig,
                                               TrainConfig, TransformConfig,
                                               serving_model_config)
+from seam_match_rcnn_tpu_torch.data.synthetic import make_synthetic_movingfashion
 from seam_match_rcnn_tpu_torch.eval import movingfashion, multidf2
 from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix
 from seam_match_rcnn_tpu_torch.eval.runner import InferenceRunner
 from seam_match_rcnn_tpu_torch.models.layers import FrozenBatchNorm2d
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.models.transform import batch_images, normalize
-from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem, native
+from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem, native, rle
+from seam_match_rcnn_tpu_torch.ops.masks import paste_masks
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
 from seam_match_rcnn_tpu_torch.ops.roi_align import (SPATIAL_SCALES, multilevel_roi_align,
                                                       multilevel_roi_align_adjoint)
-from seam_match_rcnn_tpu_torch.serving import SeamRetrieval
+from seam_match_rcnn_tpu_torch.serving import Gallery, RetrievalResult, SeamRetrieval
 from seam_match_rcnn_tpu_torch.train.engine import (train_one_epoch_matchrcnn,
                                                      train_one_epoch_movingfashion,
                                                      train_one_epoch_multidf2)
@@ -125,6 +145,8 @@ EVAL_PATH = ("fused_stem", "nlb_aggregate", "pairwise_scores")
 TRAIN_PALLAS_PATH = ("fused_stem", "roi_align_patch", "roi_align_adjoint")
 SEAM_PATH = ("fused_stem", "roi_align")  # the frozen detector's inference
 SEAM_IDLE = ("nlb_aggregate", "pairwise_scores", "roi_align_adjoint")  # no K3, K4, K5 there
+SERVE_DETECT_PATH = ("fused_stem", "roi_align")  # detect: no descriptors, so no K3 or K4
+SERVE_IDLE = ("roi_align_adjoint", "roi_align_patch", "roi_align_patch_int8")  # no K5-K7
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1223,6 +1245,242 @@ def phase_seam(dev):
         torch.cuda.empty_cache()
     return launches, report
 
+def launch_counts(zero: bool = False):
+    """Every kernel's launch count (and, with ``zero``, reset them to 0)."""
+    counts = {name: fn.launches for name, (_, _, fn) in KERNELS.items()}
+    if zero:
+        for _, _, fn in KERNELS.values():
+            fn.launches = 0
+    return counts
+
+
+def check_serve_path(path: str, counts, detect: bool) -> None:
+    need = SERVE_DETECT_PATH if detect else SERVING_PATH
+    idle = SERVE_IDLE + (("nlb_aggregate", "pairwise_scores") if detect else ())
+    missing = [n for n in need if counts[n] == 0]
+    launched = [n for n in idle if counts[n] != 0]
+    if missing or launched:
+        raise SystemExit(f"serve: {path}: never launched {missing}; launched {launched}")
+
+
+def check_detections(outs, frames, d, where):
+    """Every image's masks are [D, H, W] f32 probabilities, and each valid
+    row's are 0 outside its box widened by half a mask cell (the paste
+    interpolates the mask's edge cells against the zero ring around them)
+    and one pixel; detections_json's RLE decodes to the masks above 0.5."""
+    for f, o in zip(frames, outs):
+        m = o["masks"]
+        if m.shape != (d,) + f.shape[:2] or m.dtype != np.float32 or not np.isfinite(m).all() \
+                or m.min() < 0 or m.max() > 1:
+            raise SystemExit(f"serve: {where}: masks are not [{d}, H, W] probabilities in [0, 1]")
+        for i in np.nonzero(o["valid"])[0]:
+            ys, xs = np.nonzero(m[i])
+            if not ys.size:
+                continue
+            x1, y1, x2, y2 = (float(v) for v in o["boxes"][i])
+            mx, my = (x2 - x1) / 56 + 1, (y2 - y1) / 56 + 1
+            if xs.min() + 0.5 < x1 - mx or xs.max() + 0.5 > x2 + mx \
+                    or ys.min() + 0.5 < y1 - my or ys.max() + 0.5 > y2 + my:
+                raise SystemExit(f"serve: {where}: row {i}'s mask reaches outside its box")
+    payload = serve.detections_json(outs)
+    n_rle = 0
+    for o, fr in zip(outs, payload["frames"]):
+        keep = np.nonzero(o["valid"] & (o["scores"] >= 0.0))[0]
+        if len(fr["masks_rle"]) != len(keep):
+            raise SystemExit(f"serve: {where}: {len(fr['masks_rle'])} RLE masks for "
+                             f"{len(keep)} detections")
+        for i, r in zip(keep, fr["masks_rle"]):
+            if not np.array_equal(rle.decode(r), (o["masks"][i] > 0.5).astype(np.uint8)):
+                raise SystemExit(f"serve: {where}: row {i}'s RLE does not decode to its mask "
+                                 "above 0.5")
+            n_rle += 1
+    return n_rle
+
+
+def http_json(url: str, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.load(resp)
+
+
+def phase_serve(dev):
+    """Phase 6: the serving entry points at full width.  (a) detect with
+    masks on 4 frames of 720x1280 and 1 of 1280x720, split into the
+    forward, the paste on the card and the copy to the host; (b) the CLI in
+    process (host ingest, its default, and --device_ingest once; --detect)
+    and its HTTP server on a synthetic MovingFashion fixture."""
+    t_phase = time.perf_counter()
+    model = serving_model(dev)
+    d = model.cfg.roi_heads.detections_per_img
+    retr = SeamRetrieval(model, chunk=11)
+    rng = np.random.RandomState(6)
+    frames = ([synthetic_image(rng, 720, 1280)[0] for _ in range(4)]
+              + [synthetic_image(rng, 1280, 720)[0]])
+    retr.detect([frames[0], frames[4]])  # warm-up of both canvases and the mask head
+    torch.cuda.synchronize()
+    paths, report = {}, {}
+
+    # (a) detect on in-memory frames, the JAX contract: [D, H, W] f32 on the host
+    launch_counts(zero=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    outs = retr.detect(frames)
+    detect_s = time.perf_counter() - t0
+    paths["serve_detect"] = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    check_serve_path("serve_detect", paths["serve_detect"], detect=True)
+    host_gb = sum(o["masks"].nbytes for o in outs) / 2**30
+
+    # the same work step by step: the forward (28x28 probabilities), the
+    # paste on the card, the copy to the host
+    fwd = InferenceRunner(model, chunk=11, with_masks=True, with_match=False,
+                          with_aggr_features=False, paste_full_masks=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = fwd(frames)
+    forward_s = time.perf_counter() - t0
+    # frame by frame as detect does (the paste freed before the next one), the
+    # copies kept as detect keeps them; the checks after the timed loop
+    paste_ms, copy_ms, hosts = [], [], []
+    for f, o, r in zip(frames, outs, raw):
+        if not np.array_equal(r["boxes"], o["boxes"]):
+            raise SystemExit("serve: the forward-only run's boxes differ from detect's")
+        m28, boxes = torch.as_tensor(r["masks"], device=dev), torch.as_tensor(r["boxes"],
+                                                                              device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pasted = paste_masks(m28, boxes, *f.shape[:2])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hosts.append(pasted.cpu().numpy())
+        t2 = time.perf_counter()
+        paste_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((t2 - t1) * 1e3)
+        del pasted
+    paste_s, copy_s = sum(paste_ms) / 1e3, sum(copy_ms) / 1e3
+    err_cpu = err_detect = 0.0
+    for f, o, r, host in zip(frames, outs, raw, hosts):
+        err_detect = max(err_detect, float(np.abs(host - o["masks"]).max()))
+        rows = np.nonzero(o["valid"])[0][:8]
+        cpu = paste_masks(torch.from_numpy(r["masks"][rows]), torch.from_numpy(r["boxes"][rows]),
+                          *f.shape[:2]).numpy()
+        err_cpu = max(err_cpu, float(np.abs(cpu - host[rows]).max()))
+    n = len(frames)
+    n_rle = check_detections(outs, frames, d, "detect")
+    above = sum(int((o["masks"][o["valid"]] > 0.5).any(axis=(1, 2)).sum()) for o in outs)
+    log(f"serve: detect of {n} frames (4 x 720x1280, 1 x 1280x720, {d} rows each) in "
+        f"{detect_s * 1e3:.1f} ms = {detect_s / n * 1e3:.1f} ms a frame; step by step, a frame: "
+        f"forward {forward_s / n * 1e3:.1f} ms, paste on the card {paste_s / n * 1e3:.1f} ms, "
+        f"copy to the host {copy_s / n * 1e3:.1f} ms (by frame: "
+        + ", ".join(f"{t:.1f}" for t in copy_ms) + f"); peak card memory {peak_gb:.2f} GiB; "
+        f"masks on the host {host_gb:.2f} GiB; launches {paths['serve_detect']}")
+    log(f"serve: the card's paste of 8 rows a frame against the CPU's on the same 28x28 "
+        f"probabilities and boxes: max abs err {err_cpu:.3g} (tolerance 1e-5); detect's masks "
+        f"against the step-by-step paste: {err_detect:.3g}; {n_rle} RLE masks decode to the "
+        f"masks above 0.5 ({above} rows with a pixel above 0.5); every mask 0 outside its box")
+    if err_cpu > 1e-5 or err_detect > 1e-5:
+        raise SystemExit("serve: the card's pasted masks disagree with the CPU paste")
+    report["detect"] = {"frames": n, "ms_per_frame": detect_s / n * 1e3,
+                        "forward_ms_per_frame": forward_s / n * 1e3,
+                        "paste_ms_per_frame": paste_s / n * 1e3,
+                        "copy_ms_per_frame": copy_s / n * 1e3, "copy_ms": copy_ms,
+                        "paste_ms": paste_ms, "peak_gib": peak_gb,
+                        "host_masks_gib": host_gb, "paste_max_abs_err_vs_cpu": err_cpu}
+    del outs, raw, fwd, hosts
+    torch.cuda.empty_cache()
+
+    # (b) the CLI in process, then its HTTP server, on a synthetic fixture
+    out_dir = Path("build") / "chip_smoke_serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    annots = make_synthetic_movingfashion(str(out_dir / "fixture"), n_products=3)
+    data = json.loads(Path(annots).read_text())
+    video = str(out_dir / "fixture" / data[sorted(data)[0]]["video_paths"][0])
+    cli_s = {}
+    old_tmp, tempfile.tempdir = tempfile.tempdir, str(out_dir)  # --synthetic's fixture
+    try:
+        for path, argv in (("serve_cli_query", ["--synthetic", "--topk", "2"]),
+                           ("serve_cli_query_device_ingest",
+                            ["--synthetic", "--topk", "2", "--device_ingest"]),
+                           ("serve_cli_detect", ["--detect", video, "--n_frames", "4"])):
+            buf = io.StringIO()
+            launch_counts(zero=True)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                result = serve.main(argv)
+            cli_s[path] = time.perf_counter() - t0
+            paths[path] = launch_counts()
+            lines = buf.getvalue().strip().splitlines()
+            printed = json.loads(lines[-1])
+            if path == "serve_cli_detect":
+                check_serve_path(path, paths[path], detect=True)
+                if printed != result or len(result["frames"]) != 4 or any(
+                        r["size"] != [160, 200] for fr in result["frames"]
+                        for r in fr["masks_rle"]):
+                    raise SystemExit(f"serve: {path}: not 4 frames of 160x200 RLE masks")
+                summary = f"{sum(len(fr['boxes']) for fr in result['frames'])} detections"
+            else:
+                check_serve_path(path, paths[path], detect=False)
+                if not isinstance(result, RetrievalResult) or not 1 <= len(result.keys) <= 2 \
+                        or printed["keys"] != list(result.keys) \
+                        or not np.isfinite(result.scores).all() \
+                        or not any("gallery index" in line for line in lines):
+                    raise SystemExit(f"serve: {path}: no top-2 answer or no gallery index")
+                summary = (f"top-2 {list(result.keys)}, track of {result.track_length} frames")
+            log(f"serve: cli {' '.join(argv)}: {cli_s[path]:.1f} s (model, fixture, gallery and "
+                f"request); {summary}; "
+                f"launches {paths[path]}")
+            del result
+            torch.cuda.empty_cache()
+    finally:
+        tempfile.tempdir = old_tmp
+
+    hretr = SeamRetrieval(model, chunk=11, ingest="host")  # the CLI's default ingest
+    gallery = Gallery.load(serve.build_gallery_from_json(hretr, annots, str(out_dir / "fixture"))
+                           .save(str(out_dir / "gallery")))
+    server = serve.make_http_server(hretr, gallery, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    http_ms = {}
+    try:
+        health = http_json(base + "/healthz")
+        products = http_json(base + "/v1/products")
+        if health != {"status": "ok", "gallery_size": 3, "backend": "gpu"} \
+                or products["keys"] != sorted(data):
+            raise SystemExit(f"serve: http: /healthz or /v1/products: {health} {products}")
+        for path, url, body in (
+                ("serve_http_query", "/v1/query", {"video": video, "topk": 2, "n_frames": 4}),
+                ("serve_http_detect", "/v1/detect", {"video": video, "n_frames": 4})):
+            launch_counts(zero=True)
+            times, answers = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                answers.append(http_json(base + url, body))
+                times.append((time.perf_counter() - t0) * 1e3)
+            paths[path] = launch_counts()
+            http_ms[path] = times
+            check_serve_path(path, paths[path], detect=path == "serve_http_detect")
+            if answers[0] != answers[1]:
+                raise SystemExit(f"serve: http {url}: two requests gave different answers")
+            a = answers[0]
+            ok = (len(a.get("keys", ())) == 2 and a["track_length"] >= 1
+                  if url == "/v1/query" else len(a.get("frames", ())) == 4)
+            if not ok:
+                raise SystemExit(f"serve: http {url}: unexpected answer {str(a)[:200]}")
+            log(f"serve: http {url} (4 frames of 160x200, host ingest): "
+                + ", ".join(f"{t:.1f}" for t in times) + f" ms; launches {paths[path]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    report["cli_s"] = cli_s
+    report["http_ms"] = http_ms
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"serve: phase 6 took {report['seconds']:.1f} s")
+    return paths, report
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1254,6 +1512,9 @@ def main() -> int:
     seam_launches, seam_report = phase_seam(dev)
     log(f"seam: phase 5 took {time.perf_counter() - t0:.1f} s")
     paths.update(seam_launches)
+    torch.cuda.empty_cache()
+    serve_launches, serve_report = phase_serve(dev)
+    paths.update(serve_launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1272,7 +1533,7 @@ def main() -> int:
         "train_step_buckets": step_buckets, "train_peak_gib": train_peak_gb,
         "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
         "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses,
-        "seam": seam_report}))
+        "seam": seam_report, "serve": serve_report}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

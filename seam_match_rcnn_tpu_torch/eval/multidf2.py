@@ -5,8 +5,6 @@ Port of ``seam_match_rcnn_tpu/eval/multidf2.py`` (the reference's
 box-to-product assignment by IoU against the product's GT box instead of
 tracking, one query box per street image, "product max" takes the MEAN of
 the ranks (the reference's behaviour, kept), and no regular/hard split.
-``box_iou_xywh`` is the port's copy of the numpy path of
-``seam_match_rcnn_tpu/ops/rle.box_iou_xywh``.
 """
 
 from __future__ import annotations
@@ -19,29 +17,13 @@ import numpy as np
 
 from ..config import EvalConfig
 from ..data.prefetch import prefetch
+from ..ops.rle import box_iou_xywh
 from .gallery import rank_of, score_matrix
 from .movingfashion import _aggregate_batch, last_layers
 from .runner import InferenceRunner
 
 STRATEGIES = ("sfmr", "product_max", "avg_desc", "aggr_desc",
               "avg_dist", "max_dist", "max_score")
-
-
-def box_iou_xywh(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
-    """pycocotools-compatible box IoU on xywh boxes -> [N1, N2] f64."""
-    b1 = np.ascontiguousarray(boxes1, np.float64)
-    b2 = np.ascontiguousarray(boxes2, np.float64)
-    x11, y11 = b1[:, 0], b1[:, 1]
-    x12, y12 = b1[:, 0] + b1[:, 2], b1[:, 1] + b1[:, 3]
-    x21, y21 = b2[:, 0], b2[:, 1]
-    x22, y22 = b2[:, 0] + b2[:, 2], b2[:, 1] + b2[:, 3]
-    iw = np.clip(np.minimum(x12[:, None], x22) - np.maximum(x11[:, None], x21), 0, None)
-    ih = np.clip(np.minimum(y12[:, None], y22) - np.maximum(y11[:, None], y21), 0, None)
-    inter = iw * ih
-    a1 = b1[:, 2] * b1[:, 3]
-    a2 = b2[:, 2] * b2[:, 3]
-    union = a1[:, None] + a2 - inter
-    return np.where(union > 0, inter / union, 0.0)
 
 
 def _xywh(b):

@@ -1,12 +1,13 @@
 """Batched inference runner: host-side bucketing around the model forward.
 
-Port of ``seam_match_rcnn_tpu/eval/runner.py`` with its device ingest:
-images are resized on the device into their orientation canvas, grouped
-into batches, split into chunks, run through ``MatchRCNN.inference`` (plus
-the aggregator's descriptors), and returned per image with boxes mapped
-back to original coordinates (torchvision
-``GeneralizedRCNNTransform.postprocess``).  ``run`` keeps chosen outputs on
-the device, in input order.
+Port of ``seam_match_rcnn_tpu/eval/runner.py``: images are resized into
+their orientation canvas (on the device, or with cv2 on the host),
+grouped into batches, split into chunks, run through
+``MatchRCNN.inference`` (plus the aggregator's descriptors), and returned
+per image with boxes mapped back to original coordinates and, with masks,
+each image's 28x28 probabilities pasted at its original size on the device
+(torchvision ``GeneralizedRCNNTransform.postprocess``).  ``run`` keeps
+chosen outputs on the device, in input order.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 
 from ..models.matchrcnn import MatchRCNN
-from ..models.transform import batch_images, device_batch_images, resize_boxes_back
+from ..models.transform import (batch_images, device_batch_images, host_batch_images,
+                                resize_boxes_back)
+from ..ops.masks import paste_masks
 
 
 def _chunk_plan(n: int, chunk: int):
@@ -40,42 +43,50 @@ def _chunk_plan(n: int, chunk: int):
 
 class InferenceRunner:
     def __init__(self, model: MatchRCNN, chunk: int = 8, ingest: str = "device",
-                 with_match: bool = True, with_aggr_features: bool = True,
-                 with_roi_features: bool = False):
+                 with_masks: bool = False, with_match: bool = True,
+                 with_aggr_features: bool = True, with_roi_features: bool = False,
+                 paste_full_masks: bool = True):
         """Runs on the model's device.  ``ingest``: "device" (raw upload,
-        resize on the device); the JAX package's "host" ingest (a cv2 resize
-        before the upload) waits for the port's data layer (ROADMAP M10.1).
-        The ``with_*`` flags choose the outputs: the match and aggregator
-        descriptors, and the 14x14 RoI features (phase-2 training keeps
-        them on the device, ``run``)."""
-        if ingest == "host":
-            raise NotImplementedError(
-                "ingest='host' (the cv2 resize of the JAX package) is not ported: it waits "
-                "for the data layer (ROADMAP M10.1); use ingest='device'")
-        if ingest != "device":
+        resize on the device; the port's default) or "host" (the JAX
+        package's default: a cv2 resize before one upload a canvas bucket).
+        The ``with_*`` flags choose the outputs: the masks, the match and
+        aggregator descriptors, and the 14x14 RoI features (phase-2
+        training keeps them on the device, ``run``).  ``paste_full_masks``:
+        with ``with_masks``, paste each detection's 28x28 probabilities at
+        the ORIGINAL image size, [D, H_orig, W_orig] f32 (torchvision's
+        postprocess); False keeps them [D, 28, 28]."""
+        if ingest not in ("host", "device"):
             raise ValueError(f"unknown ingest {ingest!r}: 'host' or 'device'")
         self.model = model
         self.chunk = chunk
+        self.ingest = ingest
+        self.with_masks = with_masks
+        self.paste_full_masks = paste_full_masks
         self.with_match = with_match
         self.with_aggr = with_aggr_features
         self.with_roi = with_roi_features
         self.device = next(model.parameters()).device
 
     def batches(self, images: List[np.ndarray]):
-        """The forward batches.  Under "pallas_int8" the int8 pyramid's
-        scales span a forward batch, so images are batched as the JAX
-        device ingest batches them, one batch per source geometry.  Every
-        other backend's outputs are per image, whatever shares the batch:
-        there the two orientation canvases fill more of each chunk, which
-        matters for a gallery of images of many sizes."""
-        batch = (device_batch_images
-                 if self.model.cfg.roi_heads.roi_align_backend == "pallas_int8"
-                 else batch_images)
+        """The forward batches.  The host ingest buckets by orientation
+        canvas, as the JAX one.  On the device under "pallas_int8" the int8
+        pyramid's scales span a forward batch, so images are batched as the
+        JAX device ingest batches them, one batch per source geometry.
+        Every other backend's outputs are per image, whatever shares the
+        batch: there the two orientation canvases fill more of each chunk,
+        which matters for a gallery of images of many sizes."""
+        if self.ingest == "host":
+            batch = host_batch_images
+        elif self.model.cfg.roi_heads.roi_align_backend == "pallas_int8":
+            batch = device_batch_images
+        else:
+            batch = batch_images
         return batch(images, self.model.cfg.transform, self.device)
 
     def _forward(self, pixels: torch.Tensor, sizes: np.ndarray) -> Dict[str, torch.Tensor]:
         out = self.model.inference(pixels, torch.as_tensor(sizes, device=self.device),
-                                   with_match=self.with_match, with_roi_features=True)
+                                   with_masks=self.with_masks, with_match=self.with_match,
+                                   with_roi_features=True)
         roi = out["roi_features"] if self.with_roi else out.pop("roi_features")
         if self.with_aggr:
             b, d = roi.shape[:2]
@@ -84,9 +95,10 @@ class InferenceRunner:
         return out
 
     def __call__(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
-        """images: HWC arrays in [0, 1] (or uint8).  Returns one dict per image
-        (input order) of numpy arrays: boxes [D, 4] in ORIGINAL image
-        coordinates, scores, labels, valid [D], and as the flags ask,
+        """images: HWC arrays in [0, 1] (or uint8 under the device ingest).
+        Returns one dict per image (input order) of numpy arrays: boxes
+        [D, 4] in ORIGINAL image coordinates, scores, labels, valid [D], and
+        as the flags ask, masks [D, H_orig, W_orig] (or [D, 28, 28]),
         match_features and aggr_features [D, 256] and roi_features [D, 256,
         14, 14]."""
         return self.run(images, device_keys=())[0]
@@ -116,10 +128,17 @@ class InferenceRunner:
                         dev[k] = torch.empty((len(images),) + v.shape[1:], dtype=v.dtype,
                                              device=v.device)
                     dev[k][torch.as_tensor(bucket.indices[s:e], device=v.device)] = v
+                masks = out.pop("masks") if self.paste_full_masks and "masks" in out else None
                 host = {k: v.cpu().numpy() for k, v in out.items()}
                 for j in range(e - s):
                     r = {k: v[j] for k, v in host.items()}
                     r["boxes"] = resize_boxes_back(r["boxes"], tuple(bucket.sizes[s + j]),
                                                    tuple(bucket.orig_sizes[s + j]))
+                    if masks is not None:
+                        # torchvision's postprocess order: the boxes back to
+                        # original coordinates first, then the paste there
+                        oh, ow = map(int, bucket.orig_sizes[s + j])
+                        r["masks"] = paste_masks(masks[j], torch.as_tensor(
+                            r["boxes"], device=masks.device), oh, ow).cpu().numpy()
                     results[bucket.indices[s + j]] = r
         return results, dev

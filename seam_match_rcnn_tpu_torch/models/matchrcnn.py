@@ -221,10 +221,9 @@ class MatchRCNN(nn.Module):
 
         images [B, 3, H, W] in [0, 1]; image_sizes [B, 2] valid (h, w).
         Returns boxes [B, D, 4] (canvas coords), scores [B, D], labels
-        [B, D], valid [B, D], roi_features [B, D, 256, 14, 14] f32 and
-        match_features [B, D, 256], with D = detections_per_img."""
-        if with_masks:
-            raise NotImplementedError("mask branch: ROADMAP M8")
+        [B, D], valid [B, D], roi_features [B, D, 256, 14, 14] f32, masks
+        [B, D, 28, 28] f32 (each row's own label's probability, box space)
+        and match_features [B, D, 256], with D = detections_per_img."""
         image_sizes = image_sizes.to(images.device)
         feats = self.features(images)
         levels = self.roi_levels(feats)
@@ -241,6 +240,14 @@ class MatchRCNN(nn.Module):
         roi14 = self._roi_align(levels, det.boxes, o, pq).to(torch.float32)
         if with_roi_features:
             out["roi_features"] = roi14.reshape(b, d, -1, o, o)
+        if with_masks:
+            # the mask branch on the match trunk's 14x14 RoI features; padded
+            # rows (label -1) read class 0, as the JAX package
+            probs = torch.sigmoid(self.mask_branch(roi14))
+            lbl = det.labels.reshape(b * d).clamp(min=0).to(torch.int64)
+            m = probs.shape[-1]
+            out["masks"] = probs.gather(1, lbl[:, None, None, None].expand(-1, 1, m, m)
+                                        ).reshape(b, d, m, m)
         if with_match:
             out["match_features"] = self.match_descriptors(roi14).reshape(b, d, -1)
         return out

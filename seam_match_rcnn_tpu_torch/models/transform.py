@@ -1,10 +1,13 @@
 """Image ingest: resize, canvas placement, normalization.
 
 Port of ``seam_match_rcnn_tpu/models/transform.py`` (torchvision
-``GeneralizedRCNNTransform`` semantics, min side 800 / max side 1333).  The
-resize runs on the device with ``F.interpolate(bilinear,
-align_corners=False, antialias=False)``, the counterpart of the JAX
-``_device_ingest``.  Images land in one of two fixed canvases by
+``GeneralizedRCNNTransform`` semantics, min side 800 / max side 1333).  Two
+ingests: on the device (``batch_images``, ``device_batch_images``) the resize
+is ``F.interpolate(bilinear, align_corners=False, antialias=False)``, the
+counterpart of the JAX ``_device_ingest``; on the host
+(``host_batch_images``) it is the JAX ``batch_images``' cv2 INTER_LINEAR
+resize in f32, with one upload a canvas bucket.  The two agree only to
+rounding.  Images land in one of two fixed canvases by
 orientation, landscape (800, 1344) or portrait (1344, 800); the padding is
 filled with the ImageNet mean so that normalization maps it to exactly 0, as
 torchvision's zero padding after normalization.
@@ -37,6 +40,45 @@ def resize_scale(h: int, w: int, cfg: TransformConfig) -> float:
     if scale * max(h, w) > cfg.max_size:
         scale = cfg.max_size / max(h, w)
     return scale
+
+
+def resize_image(img: np.ndarray, cfg: TransformConfig) -> np.ndarray:
+    """The host resize of one HWC float image in [0, 1] (cv2 INTER_LINEAR
+    in f32, torch's ``interpolate(scale_factor=s,
+    recompute_scale_factor=True)`` size)."""
+    h, w = img.shape[:2]
+    scale = resize_scale(h, w, cfg)
+    new_h, new_w = int(h * scale), int(w * scale)
+    if (new_h, new_w) == (h, w):
+        return img.astype(np.float32)
+    import cv2
+
+    return cv2.resize(img.astype(np.float32), (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+
+
+def host_batch_images(images: Sequence[np.ndarray], cfg: TransformConfig,
+                      device: torch.device) -> List[ImageBatch]:
+    """The JAX ``batch_images``: resize each HWC float [0, 1] RGB image on
+    the host, place it in its orientation canvas padded with the ImageNet
+    mean, and upload each canvas bucket once."""
+    buckets = {}
+    for i, img in enumerate(images):
+        r = resize_image(img, cfg)
+        h, w = r.shape[:2]
+        canvas = cfg.landscape_canvas if w >= h else cfg.portrait_canvas
+        buckets.setdefault(canvas, []).append((i, r))
+    out = []
+    for canvas, items in buckets.items():
+        pixels = np.empty((len(items), canvas[0], canvas[1], 3), dtype=np.float32)
+        pixels[:] = np.asarray(cfg.image_mean, np.float32)
+        for j, (_, r) in enumerate(items):
+            pixels[j, :r.shape[0], :r.shape[1]] = r
+        out.append(ImageBatch(
+            pixels=torch.from_numpy(pixels).to(device).permute(0, 3, 1, 2).contiguous(),
+            sizes=np.asarray([r.shape[:2] for _, r in items], np.int32),
+            orig_sizes=np.asarray([images[i].shape[:2] for i, _ in items], np.int32),
+            indices=[i for i, _ in items]))
+    return out
 
 
 def device_ingest(frames: torch.Tensor, cfg: TransformConfig) -> torch.Tensor:

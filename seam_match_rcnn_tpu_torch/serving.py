@@ -6,10 +6,12 @@ Port of ``seam_match_rcnn_tpu/serving.py``:
     retr = SeamRetrieval.from_checkpoint("model.pth")    # or from a torch file
     gallery = retr.build_gallery(shop_images)            # once
     result = retr.retrieve(video_frames, gallery, k=5)   # per query video
+    dets = retr.detect(frames)                           # boxes, full-image masks
 
 The detector runs on the model's device; the frame self-similarity, the
 temporal aggregation and the gallery scoring run there too (kernels K4, K3
-and K4 on a CUDA device).  Greedy tracking stays on the host.
+and K4 on a CUDA device), and so does the mask paste.  Greedy tracking
+stays on the host.  cv2 is imported by the functions that decode files.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ class Gallery:
     keys: List[str]
 
     def save(self, path: str) -> str:
-        """Persist the index as one .npz (build once, serve many)."""
+        """Persist the index as one .npz (build once, serve many); the JAX
+        package's ``Gallery.load`` reads it."""
         if not path.endswith(".npz"):
             path += ".npz"
         np.savez(path, match_feats=self.match_feats, aggr_feats=self.aggr_feats,
@@ -44,9 +47,47 @@ class Gallery:
 
     @classmethod
     def load(cls, path: str) -> "Gallery":
-        with np.load(path) as z:
+        """Read an index written by either package.  The JAX package stores
+        the keys as an object array, which numpy unpickles: an index file is
+        trusted input, as it is to the JAX package."""
+        with np.load(path, allow_pickle=True) as z:
             return cls(match_feats=z["match_feats"], aggr_feats=z["aggr_feats"],
                        keys=[str(k) for k in z["keys"]])
+
+
+def decode_video_frames(path: str, n_frames: int = 10) -> List[np.ndarray]:
+    """Decode ``n_frames`` uniformly spaced frames of a video file as HWC
+    float [0, 1] RGB arrays (cv2 random-access seek)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    total = cap.get(cv2.CAP_PROP_FRAME_COUNT)
+    if total <= 0:
+        cap.release()
+        raise ValueError(f"cannot read video: {path}")
+    frames = []
+    for frac in np.linspace(0.0, 1.0, n_frames):
+        cap.set(cv2.CAP_PROP_POS_FRAMES, min(int(total * frac), int(total) - 1))
+        ok, frame = cap.read()
+        if ok:
+            frames.append(frame[:, :, ::-1].astype(np.float32) / 255.0)
+    cap.release()
+    if not frames:
+        raise ValueError(f"no decodable frames in: {path}")
+    return frames
+
+
+def load_image_frames(paths: Sequence[str]) -> List[np.ndarray]:
+    """Load image files as HWC float [0, 1] RGB arrays."""
+    import cv2
+
+    frames = []
+    for p in paths:
+        img = cv2.imread(p, cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError(f"cannot read image: {p}")
+        frames.append(img[:, :, ::-1].astype(np.float32) / 255.0)
+    return frames
 
 
 @dataclasses.dataclass
@@ -58,12 +99,16 @@ class RetrievalResult:
 
 
 class SeamRetrieval:
-    def __init__(self, model: MatchRCNN, cfg: Optional[EvalConfig] = None, chunk: int = 8):
+    def __init__(self, model: MatchRCNN, cfg: Optional[EvalConfig] = None, chunk: int = 8,
+                 ingest: str = "device"):
+        """``ingest``: the runner's, "device" (the port's default) or "host"
+        (cv2, the JAX package's default)."""
         if not model.video:
             raise ValueError("SeamRetrieval needs the video model (MatchRCNN(video=True))")
         self.model = model
         self.cfg = cfg or EvalConfig()
-        self.runner = InferenceRunner(model, chunk=chunk)
+        self.runner = InferenceRunner(model, chunk=chunk, ingest=ingest)
+        self._detect_runners: Dict[bool, InferenceRunner] = {}
         self.device = self.runner.device
         heads = model.roi_heads
         self._w = heads["match_predictor"].last.weight.detach()
@@ -85,6 +130,22 @@ class SeamRetrieval:
         model = init_model(cfg or serving_model_config(), video=True, device=device)
         load_pretrained_detector(path, model, clone_match_to_aggregator=False)
         return cls(model, cfg=cfg_eval, **kw)
+
+    def detect(self, images: Sequence[np.ndarray], with_masks: bool = True
+               ) -> List[Dict[str, np.ndarray]]:
+        """Garment detection with full-image masks, one dict per image:
+        boxes [D, 4] xyxy in original image coordinates, scores, labels,
+        valid [D], and (``with_masks``) masks [D, H_orig, W_orig] f32
+        probabilities, pasted on the device (torchvision's postprocess of
+        the reference's eval detector).  Rows with ``valid`` False or a
+        score below ``cfg.score_threshold`` are padding.  The runner, which
+        exports no descriptors, is made once per ``with_masks``."""
+        runner = self._detect_runners.get(with_masks)
+        if runner is None:
+            runner = self._detect_runners[with_masks] = InferenceRunner(
+                self.model, chunk=self.runner.chunk, ingest=self.runner.ingest,
+                with_masks=with_masks, with_match=False, with_aggr_features=False)
+        return runner(list(images))
 
     def _best_box(self, out) -> Optional[int]:
         keep = np.nonzero((out["scores"] >= self.cfg.score_threshold) & out["valid"])[0]
@@ -150,3 +211,9 @@ class SeamRetrieval:
         return RetrievalResult(indices=order, scores=scores[order],
                                keys=[gallery.keys[i] for i in order],
                                track_length=len(emb["track_rows"]))
+
+    def retrieve_video(self, path: str, gallery: Gallery, k: int = 5,
+                       n_frames: int = 10) -> RetrievalResult:
+        """Query straight from a video file: uniform-fraction decode, then
+        ``retrieve``."""
+        return self.retrieve(decode_video_frames(path, n_frames), gallery, k)

@@ -207,7 +207,7 @@ def _best_iou_rows_mdf2(
     detection best overlapping the product's GT box represents the product;
     shop images keep only that box; products whose shop has no detection are
     excluded."""
-    from ..eval.multidf2 import box_iou_xywh
+    from ..ops.rle import box_iou_xywh
 
     rows = []  # (img, det, tag, prod)
     excluded = set()

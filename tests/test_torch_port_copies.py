@@ -58,7 +58,7 @@ def test_prefetch_copy_agrees():
 
 def test_box_iou_xywh_copy_agrees():
     from seam_match_rcnn_tpu.ops.rle import box_iou_xywh as jax_iou
-    from seam_match_rcnn_tpu_torch.eval.multidf2 import box_iou_xywh
+    from seam_match_rcnn_tpu_torch.ops.rle import box_iou_xywh
     rng = np.random.RandomState(0)
     a = np.concatenate([rng.uniform(0, 100, (7, 2)), rng.uniform(0, 60, (7, 2))], 1)
     b = np.concatenate([rng.uniform(0, 100, (5, 2)), rng.uniform(0, 60, (5, 2))], 1)

@@ -706,3 +706,64 @@ def test_seam_head_step_on_the_card_matches_the_cpu(card):
 
     bad, _ = seam.compare_head_updates(both(cpu_b), both(cpu_a), both(gpu_a))
     assert not bad, bad
+
+
+def test_paste_masks_on_the_card_matches_the_cpu(card):
+    """``ops/masks.paste_masks`` in torch ops on the card: 100 rows pasted on
+    a 720x1280 frame (boxes inside, past the edges and under a pixel wide)
+    against the same call on the CPU, within 1e-6."""
+    from seam_match_rcnn_tpu_torch.ops.masks import paste_masks
+
+    rng = np.random.RandomState(15)
+    n, h, w = 100, 720, 1280
+    masks = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32))
+    x1, y1 = rng.uniform(-200, 1300, n), rng.uniform(-100, 740, n)
+    bw, bh = rng.uniform(0.2, 600, n), rng.uniform(0.2, 500, n)
+    bw[:5] = rng.uniform(0.0, 0.9, 5)
+    boxes = torch.from_numpy(np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32))
+    got = paste_masks(masks.to(card), boxes.to(card), h, w)
+    assert got.is_cuda and got.shape == (n, h, w)
+    want = paste_masks(masks, boxes, h, w)
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    assert float((want > 0).float().mean()) > 0.01
+
+
+def test_detect_on_the_card_matches_the_cpu(card):
+    """``SeamRetrieval.detect`` with masks under the serving profile (K1,
+    K2; f32 compute) at a 96x128 canvas, on the card and on the CPU from the
+    same weights and frames: boxes, scores and pasted masks within 1e-3 on
+    the rows valid on both sides; the card's detect launches K1 and K2 and
+    neither K3 nor K4."""
+    import dataclasses
+
+    from seam_match_rcnn_tpu_torch.config import (RoIHeadsConfig, RPNConfig, TransformConfig,
+                                                  serving_model_config)
+    from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
+    from seam_match_rcnn_tpu_torch.serving import SeamRetrieval
+
+    canvas = dataclasses.dataclass(frozen=True)(type("Canvas96x128", (TransformConfig,), {
+        "landscape_canvas": property(lambda self: (96, 128)),
+        "portrait_canvas": property(lambda self: (128, 96))}))
+    cfg = serving_model_config(
+        rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=80),
+        roi_heads=RoIHeadsConfig(detections_per_img=6, roi_align_backend="pallas_resident"),
+        transform=canvas(min_size=96, max_size=128), compute_dtype="float32")
+    rng = np.random.RandomState(16)
+    frames = []
+    for h, w in ((120, 160), (120, 160), (150, 110)):
+        img = rng.uniform(0.0, 0.25, (h, w, 3)).astype(np.float32)
+        img[h // 4:3 * h // 4, w // 4:3 * w // 4] = rng.uniform(0.3, 1.0, 3)
+        frames.append(img)
+    want = SeamRetrieval(init_model(cfg, video=True, seed=2, device="cpu")).detect(frames)
+    kernels = (cuda_stem.fused_stem, cuda_roi_align.roi_align, cuda_kernels.nlb_aggregate,
+               cuda_kernels.pairwise_scores)
+    before = [fn.launches for fn in kernels]
+    got = SeamRetrieval(init_model(cfg, video=True, seed=2, device=card)).detect(frames)
+    launched = [fn.launches - n for fn, n in zip(kernels, before)]
+    assert launched[0] > 0 and launched[1] > 0 and launched[2:] == [0, 0], launched
+    for g, w, f in zip(got, want, frames):
+        assert g["masks"].shape == (6,) + f.shape[:2]
+        v = g["valid"] & w["valid"]
+        assert v.sum() >= 2
+        for k in ("boxes", "scores", "masks"):
+            np.testing.assert_allclose(g[k][v], w[k][v], rtol=1e-3, atol=1e-3, err_msg=k)

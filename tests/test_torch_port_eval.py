@@ -12,7 +12,7 @@ Metric files, per-product accuracies, CSVs and returned top-1 values must be
 equal.  Also: the port's runner forms the same forward batches as the JAX
 package's device ingest under "pallas_int8" (the int8 pyramid's scales span
 a batch) and its orientation canvases under the other backends, and the
-cv2 host ingest is refused.
+cv2 host ingest (``EvalConfig()``'s) runs both harnesses.
 
 Then MovingFashion end to end under the int8 RoIAlign: the port's
 ``evaluate`` through the port's ``InferenceRunner`` against the JAX
@@ -205,12 +205,41 @@ def test_runner_batches_follow_the_backend(backend):
     assert len(got) == (4 if by_geometry else 2)
 
 
-def test_host_ingest_waits_for_the_data_layer(models):
-    port = models[0]
-    with pytest.raises(NotImplementedError, match="M10.1"):
-        InferenceRunner(port, ingest="host")
-    with pytest.raises(NotImplementedError, match="M10.1"):
-        movingfashion.evaluate(port, [], EvalConfig())  # the JAX default ingest is "host"
+def test_host_ingest_runs_as_the_jax_default(tmp_path):
+    """``InferenceRunner(ingest="host")`` (cv2 on the host, the JAX
+    package's buckets) and both harnesses under ``EvalConfig()``, whose
+    ingest is "host", run: a small-canvas model on the CPU, boxes in each
+    image's original coordinates.  An unknown ingest raises."""
+    cfg = ModelConfig(rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=80),
+                      roi_heads=RoIHeadsConfig(detections_per_img=6), compute_dtype="float32",
+                      transform=Canvas96x128(min_size=96, max_size=128))
+    port = init_model(cfg, video=True, seed=5, device="cpu")
+    rng = np.random.RandomState(8)
+    images = [_image(rng, 120, 160), _image(rng, 150, 110), _image(rng, 96, 128)]
+    runner = InferenceRunner(port, chunk=4, ingest="host")
+    assert [b.indices for b in runner.batches(images)] == [
+        list(b.indices) for b in jax_host_batches(images, JaxCanvas96x128(min_size=96,
+                                                                           max_size=128))]
+    for img, o in zip(images, runner(images)):
+        assert o["boxes"].shape == (6, 4) and o["match_features"].shape == (6, 256)
+        assert np.isfinite(o["aggr_features"]).all()
+        b = o["boxes"][o["valid"]]
+        assert len(b) and (b[:, 2] <= img.shape[1] + 1e-3).all() \
+            and (b[:, 3] <= img.shape[0] + 1e-3).all()
+
+    assert EvalConfig().ingest == "host"
+    mf = [{"images": [_image(rng, 120, 160) for _ in range(3)],
+           "tracklet_gt": np.tile([[10.0, 10.0, 100.0, 90.0]], (2, 1)),
+           "source": 1 - i, "key": f"product{i}"} for i in range(2)]
+    top1 = movingfashion.evaluate(port, mf, EvalConfig(), out_dir=str(tmp_path / "mf"))
+    assert len(top1) == 3 and all(np.isfinite(top1))
+    box = np.asarray([10.0, 10.0, 100.0, 90.0], np.float32)
+    mdf2 = [{"images": [_image(rng, 120, 160) for _ in range(2)],
+             "targets": [{"boxes": box[None], "styles": np.asarray([1]),
+                          "pair_ids": np.asarray([i])} for _ in range(2)],
+             "key": f"1_{i}", "has_video": True} for i in range(2)]
+    top1 = multidf2.evaluate(port, mdf2, EvalConfig(), out_dir=str(tmp_path / "mdf2"))
+    assert len(top1) == 3 and all(np.isfinite(top1))
     with pytest.raises(ValueError):
         InferenceRunner(port, ingest="cv2")
 

@@ -1,4 +1,5 @@
-"""SeamRetrieval, port vs JAX: build_gallery + retrieve on shared weights.
+"""SeamRetrieval, port vs JAX: build_gallery + retrieve, and detect with
+full-image masks, on shared weights.
 
 The reduced config of tests/test_serving.py (XLA backends on the JAX side
 and the port's plain versions on the CPU) on 96x128 / 128x96 canvases, JAX
@@ -8,6 +9,7 @@ landscape and portrait.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -32,7 +34,10 @@ def _image(rng, h, w):
     return img
 
 
-def test_retrieval_matches_jax(tmp_path):
+@pytest.fixture(scope="module")
+def models():
+    """The JAX video model and variables (seeded, non-zero W_z) and the
+    port's model on the same weights, both at the reduced config."""
     kw = dict(rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=80),
               roi_heads=RoIHeadsConfig(detections_per_img=6), compute_dtype="float32")
     cfg = ModelConfig(transform=JaxCanvas96x128(min_size=96, max_size=128), **kw)
@@ -45,6 +50,14 @@ def test_retrieval_matches_jax(tmp_path):
         "bias": (rng.randn(256) * 0.05).astype(np.float32)}
     variables = {"params": params,
                  "batch_stats": jax.tree.map(np.asarray, variables["batch_stats"])}
+    port = load_jax_variables(init_model(port_cfg, video=True, device="cpu"), variables)
+    return jmodel, variables, port
+
+
+def test_retrieval_matches_jax(models, tmp_path):
+    jmodel, variables, port = models
+    rng = np.random.RandomState(3)
+    rng.randn(128 * 256 + 256)  # the draws of W_z in the fixture
     shops = [_image(rng, 120, 160), _image(rng, 160, 120), _image(rng, 96, 128)]
     frames = [_image(rng, 120, 160) for _ in range(3)]
     keys = ["a", "b", "c"]
@@ -54,9 +67,7 @@ def test_retrieval_matches_jax(tmp_path):
     jgal = jretr.build_gallery(shops, keys=keys)
     want = jretr.retrieve(frames, jgal, k=2)
 
-    retr = SeamRetrieval(load_jax_variables(init_model(port_cfg, video=True, device="cpu"),
-                                            variables),
-                         cfg=ecfg, chunk=4)
+    retr = SeamRetrieval(port, cfg=ecfg, chunk=4)
     gal = Gallery.load(retr.build_gallery(shops, keys=keys).save(str(tmp_path / "g")))
     got = retr.retrieve(frames, gal, k=2)
 
@@ -66,3 +77,30 @@ def test_retrieval_matches_jax(tmp_path):
     assert got.track_length == want.track_length
     # f32 throughout; descriptors agree to ~1e-5 and the scores are sigmoids
     np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-4)
+
+
+def test_detect_matches_jax(models):
+    """detect: boxes in original coordinates and each row's mask pasted at
+    the original size, against the JAX ``SeamRetrieval.detect`` on the same
+    model and frames (two landscape frames of one size and a portrait one
+    at a non-canvas size), on the rows valid on both sides."""
+    jmodel, variables, port = models
+    rng = np.random.RandomState(7)
+    frames = [_image(rng, 120, 160), _image(rng, 120, 160), _image(rng, 150, 110)]
+    ecfg = EvalConfig(score_threshold=0.0)
+    want = JaxSeamRetrieval(jmodel, variables, cfg=ecfg, chunk=4, ingest="device").detect(frames)
+    retr = SeamRetrieval(port, cfg=ecfg, chunk=4)
+    got = retr.detect(frames)
+    assert retr.detect(frames[:1], with_masks=False)[0].keys() == {"boxes", "scores", "labels",
+                                                                  "valid"}
+    tol = dict(rtol=1e-3, atol=1e-3)
+    for g, w, f in zip(got, want, frames):
+        assert set(g) == set(w) == {"boxes", "scores", "labels", "valid", "masks"}
+        assert g["masks"].shape == (6,) + f.shape[:2] and g["masks"].dtype == np.float32
+        v = g["valid"] & w["valid"]
+        assert v.sum() >= 2
+        np.testing.assert_allclose(g["boxes"][v], w["boxes"][v], **tol)
+        np.testing.assert_allclose(g["scores"][v], w["scores"][v], **tol)
+        np.testing.assert_array_equal(g["labels"][v], w["labels"][v])
+        np.testing.assert_allclose(g["masks"][v], w["masks"][v], **tol)
+        assert (w["masks"][v] > 0.5).any()

@@ -1,6 +1,7 @@
 """The serving slice, port vs JAX, at the serving profile on a small canvas.
 
-``MatchRCNN.inference`` + ``aggregator_descriptors`` + ``aggregate_sequences``
+``MatchRCNN.inference`` (with masks) + ``aggregator_descriptors`` +
+``aggregate_sequences``
 under ``serving_model_config`` (fused stem, tile-resident RoIAlign and fused
 NLB; the JAX kernels run in interpret mode, the port's wrappers take their
 plain versions on the CPU), f32 compute, 96x128 canvas — the setting of
@@ -40,7 +41,7 @@ def test_serving_forward_matches_jax():
     sizes = np.asarray([[96, 128]], np.int32)
 
     def fwd(m, im, sz):
-        out = m.inference(im, sz, with_masks=False)
+        out = m.inference(im, sz, with_masks=True)
         roi = out["roi_features"].reshape(-1, 14, 14, 256)
         out["aggr_features"] = m.aggregator_descriptors(roi).reshape(1, -1, 256)
         seq = out["aggr_features"][:, :4]  # a 4-frame track through the fused NLB
@@ -51,7 +52,8 @@ def test_serving_forward_matches_jax():
                                                  jnp.asarray(sizes), method=fwd))
 
     port = load_jax_variables(init_model(cfg, video=True, device="cpu"), variables)
-    out = port.inference(torch.from_numpy(images).permute(0, 3, 1, 2), torch.from_numpy(sizes))
+    out = port.inference(torch.from_numpy(images).permute(0, 3, 1, 2), torch.from_numpy(sizes),
+                         with_masks=True)
     roi = out["roi_features"]
     aggr = port.aggregator_descriptors(roi.reshape((-1,) + roi.shape[2:])).reshape(1, -1, 256)
     video = port.aggregate_sequences(aggr[:, :4], torch.ones((1, 4), dtype=torch.bool))
@@ -59,6 +61,7 @@ def test_serving_forward_matches_jax():
         assert fn.launches == 0  # CPU tensors took the plain versions
 
     assert out["boxes"].shape == (1, 6, 4) and out["match_features"].shape == (1, 6, 256)
+    assert out["masks"].shape == (1, 6, 28, 28) and out["masks"].dtype == torch.float32
     v = want["valid"][0]
     np.testing.assert_array_equal(out["valid"].numpy()[0], v)
     assert v.sum() >= 2
@@ -68,6 +71,7 @@ def test_serving_forward_matches_jax():
     tol = dict(rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(out["boxes"].numpy()[0][v], want["boxes"][0][v], **tol)
     np.testing.assert_allclose(out["scores"].numpy()[0][v], want["scores"][0][v], **tol)
+    np.testing.assert_allclose(out["masks"].numpy()[0][v], want["masks"][0][v], **tol)
     np.testing.assert_allclose(out["match_features"].numpy()[0][v],
                                want["match_features"][0][v], **tol)
     np.testing.assert_allclose(aggr.numpy()[0][v], want["aggr_features"][0][v], **tol)
