@@ -57,11 +57,31 @@ Phases, one line each:
                on a synthetic MovingFashion fixture (--synthetic with the
                host ingest and with --device_ingest, --detect on its
                video) and its HTTP server (/healthz, /v1/products, twice
-               each of /v1/query and /v1/detect).
-For phases 3 to 6 the launch counters are zeroed right before each path
+               each of /v1/query and /v1/detect);
+  7. cli     - the training and evaluation CLIs in process at full width
+               (their own model configs, seeded random weights) on
+               synthetic fixtures in a temporary directory: deepf_to_coco
+               on 48 DF2 images of 600x800; train_matchrcnn (batch 8, 2
+               epochs of 12 steps, --save_steps 4, --clip_grad_norm 5.0)
+               under torch.use_deterministic_algorithms, with step times,
+               checkpoint sizes and save/read times; the same command
+               stopped once epoch 1's mid slot exists and rerun with
+               --auto_resume, held bit-equal to the first run (items
+               loaded, epoch, optimizer_count, every tensor and momentum
+               buffer); one epoch with --roi_backend pallas; then
+               train_movingfashion (16 products x (1 + 10), 2 epochs, eval
+               every epoch) and train_multidf2 (8 x (1 + 10), 1 epoch) from
+               the phase-1 final.pt, each checked for a frozen detector
+               (and, MultiDF2, match predictor) and moved heads; the two
+               eval CLIs on their final.pt (seconds a product, top-1); and
+               SeamRetrieval.from_checkpoint on the MovingFashion file
+               answering one query.
+For phases 3 to 7 the launch counters are zeroed right before each path
 and read right after; every kernel of the path must have run (on the seam
 paths K3, K4 and K5 must not; on the serve paths K5-K7 must not, nor K3
-and K4 on a detect path).  Then the card's name
+and K4 on a detect path; on the phase-1 CLI paths K3, K4 and K7 must not,
+on the phase-2 training epochs K3-K7 must not, and the CLIs' evaluations
+run K1-K4 and never K5-K7).  Then the card's name
 and power limit, a JSON line of per-kernel results, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without that
 line.  There is no CPU fallback.
@@ -73,6 +93,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -81,19 +102,29 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
-import numpy as np
-import torch
+# phase 7 runs the phase-1 CLI under torch.use_deterministic_algorithms, whose
+# cuBLAS calls need this workspace setting before the first handle exists
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-import torch.nn.functional as F
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
+from seam_match_rcnn_tpu_torch.ckpt import io as ckpt_io  # noqa: E402
 from seam_match_rcnn_tpu_torch.ckpt.torch_convert import clone_match_to_aggregator
-from seam_match_rcnn_tpu_torch.cli import serve
+from seam_match_rcnn_tpu_torch.cli import (deepf_to_coco, evaluate_movingfashion,
+                                           evaluate_multidf2, serve, train_matchrcnn,
+                                           train_movingfashion, train_multidf2)
 from seam_match_rcnn_tpu_torch.config import (EvalConfig, RoIHeadsConfig, SEAMTrainConfig,
                                               TrainConfig, TransformConfig,
                                               serving_model_config)
-from seam_match_rcnn_tpu_torch.data.synthetic import make_synthetic_movingfashion
+from seam_match_rcnn_tpu_torch.data import df2
+from seam_match_rcnn_tpu_torch.data.synthetic import (make_synthetic_df2,
+                                                      make_synthetic_movingfashion)
 from seam_match_rcnn_tpu_torch.eval import movingfashion, multidf2
 from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix
 from seam_match_rcnn_tpu_torch.eval.runner import InferenceRunner
@@ -106,7 +137,8 @@ from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
 from seam_match_rcnn_tpu_torch.ops.roi_align import (SPATIAL_SCALES, multilevel_roi_align,
                                                       multilevel_roi_align_adjoint)
-from seam_match_rcnn_tpu_torch.serving import Gallery, RetrievalResult, SeamRetrieval
+from seam_match_rcnn_tpu_torch.serving import (Gallery, RetrievalResult, SeamRetrieval,
+                                                decode_video_frames, load_image_frames)
 from seam_match_rcnn_tpu_torch.train.engine import (train_one_epoch_matchrcnn,
                                                      train_one_epoch_movingfashion,
                                                      train_one_epoch_multidf2)
@@ -1482,6 +1514,483 @@ def phase_serve(dev):
     return paths, report
 
 
+
+# ---- phase 7: the training and evaluation command lines ----------------------------------
+
+P1_CLI_NEVER = ("nlb_aggregate", "pairwise_scores", "roi_align_patch_int8")  # no K3, K4, K7
+SEAM_STEP_NEVER = ("roi_align_adjoint", "roi_align_patch", "roi_align_patch_int8")  # no K5-K7
+CLI_EVAL_PATH = ("fused_stem", "roi_align", "nlb_aggregate", "pairwise_scores")
+
+
+class StopRun(Exception):
+    """Raised by the resume check's hook once the mid slot of epoch 1 exists."""
+
+
+def check_launches(path: str, counts, need, never) -> None:
+    missing = [n for n in need if counts[n] == 0]
+    launched = [n for n in never if counts[n] != 0]
+    if missing or launched:
+        raise SystemExit(f"cli: {path}: never launched {missing}; launched {launched}")
+
+
+@contextlib.contextmanager
+def patched(obj, name, make):
+    """``obj.name`` replaced by ``make(original)`` for the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield orig
+    finally:
+        setattr(obj, name, orig)
+
+
+def run_cli(main_fn, argv):
+    """A CLI's ``main`` in process, its standard output kept; returns (what
+    ``main`` returned, the output's lines, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    return result, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+class CliRecorder:
+    """The hooks phase 7 puts around the CLIs it calls: each checkpoint
+    write (file, bytes, ms) and read (ms), each phase-1 step (a
+    ``TimedTrainer``), each DF2 item loaded (index and the sums of its
+    left and right 8-pixel strips, so a flip shows), each phase-2 epoch
+    (a ``Timed`` runner and head step, and the launches of the epoch alone)
+    and each evaluation (seconds, products, top-1), and optionally a stop
+    once a mid slot of ``stop_epoch`` is written."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self, stop_epoch=None):
+        self.saves, self.loads, self.trainers, self.items = [], [], [], []
+        self.epochs, self.evals, self.ingest, self.stop_epoch = [], [], [], stop_epoch
+
+    def install(self, stack: contextlib.ExitStack):
+        rec = self
+
+        def maybe_save(orig):
+            def save(self, epoch, payload, final=False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig(self, epoch, payload, final)
+                ms = (time.perf_counter() - t0) * 1e3
+                if final or (self.save_epochs > 0 and epoch % self.save_epochs == 0):
+                    p = Path(self.directory) / ("final.pt" if final else f"epoch{epoch:03d}.pt")
+                    rec.saves.append((p.name, p.stat().st_size, ms))
+            return save
+
+        def save_mid(orig):
+            def save(self, payload):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = orig(self, payload)
+                rec.saves.append(("mid.pt", Path(path).stat().st_size,
+                                  (time.perf_counter() - t0) * 1e3))
+                if payload["epoch"] == rec.stop_epoch:
+                    raise StopRun
+                return path
+            return save
+
+        def restore(orig):
+            def load(path):
+                t0 = time.perf_counter()
+                out = orig(path)
+                rec.loads.append((Path(path).name, (time.perf_counter() - t0) * 1e3))
+                return out
+            return load
+
+        def getitem(orig):
+            def item(self, idx):
+                out = orig(self, idx)
+                img = out[0]
+                rec.items.append((int(idx), float(img[:, :8].sum()), float(img[:, -8:].sum())))
+                return out
+            return item
+
+        def trainer(orig):
+            def make(model, optimizer):
+                t = TimedTrainer(orig(model, optimizer))
+                rec.trainers.append(t)
+                return t
+            return make
+
+        def phase2_epoch(orig):
+            def epoch(runner, head_step, data, ep, *args, **kw):
+                timed = Timed(runner, head_step, (), None, kw.get("score_thresh", 0.1))
+                before, n_ingest = launch_counts(), len(rec.ingest)
+                t0 = time.perf_counter()
+                out = orig(timed, timed, data, ep, *args, **kw)
+                after = launch_counts()
+                rec.epochs.append({"timed": timed, "s": time.perf_counter() - t0,
+                                   "ingest_s": rec.ingest[n_ingest:],
+                                   "launches": {k: after[k] - before[k] for k in after}})
+                return out
+            return epoch
+
+        def batches(orig):  # the runner's ingest: resize, canvases, upload
+            def ingest(self, images):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(self, images)
+                torch.cuda.synchronize()
+                rec.ingest.append(time.perf_counter() - t0)
+                return out
+            return ingest
+
+        def evaluate(orig):
+            def run(model, products, *args, **kw):
+                n = [0]
+
+                def counted(ps):
+                    for p in ps:
+                        n[0] += 1
+                        yield p
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(model, counted(products), *args, **kw)
+                rec.evals.append({"s": time.perf_counter() - t0, "products": n[0],
+                                  "top1": [float(x) for x in out]})
+                return out
+            return run
+
+        stack.enter_context(patched(ckpt_io.CheckpointManager, "maybe_save", maybe_save))
+        stack.enter_context(patched(ckpt_io.CheckpointManager, "save_mid", save_mid))
+        stack.enter_context(patched(ckpt_io, "restore_training_checkpoint", restore))
+        stack.enter_context(patched(df2.DeepFashion2Dataset, "__getitem__", getitem))
+        stack.enter_context(patched(train_matchrcnn, "Phase1Trainer", trainer))
+        stack.enter_context(patched(InferenceRunner, "batches", batches))
+        for mod, name in ((train_movingfashion, "train_one_epoch_movingfashion"),
+                          (train_multidf2, "train_one_epoch_multidf2")):
+            stack.enter_context(patched(mod, name, phase2_epoch))
+        for mod in (train_movingfashion, train_multidf2, evaluate_movingfashion,
+                    evaluate_multidf2):
+            stack.enter_context(patched(mod, "evaluate", evaluate))
+
+
+def mf_fixture(root: Path):
+    """Two synthetic MovingFashion fixtures under one root: 16 training and 4
+    test products, 12 frames of 360x640 each, other seeds so that the test
+    products are not the training ones; returns the two JSON paths."""
+    out = []
+    for name, n, seed in (("train", 16, 0), ("test", 4, 1)):
+        data = json.loads(Path(make_synthetic_movingfashion(
+            str(root / name), n_products=n, n_frames=12, frame_size=(360, 640),
+            seed=seed)).read_text())
+        for entry in data.values():
+            entry["img_path"] = f"{name}/{entry['img_path']}"
+            entry["video_paths"] = [f"{name}/{v}" for v in entry["video_paths"]]
+        path = root / f"{name}.json"
+        path.write_text(json.dumps(data))
+        out.append(str(path))
+    return out
+
+
+def state_of(path, reads=None):
+    """A checkpoint file's payload on the host; with ``reads``, the file's
+    name, size and read ms are appended to it."""
+    t0 = time.perf_counter()
+    out = torch.load(path, map_location="cpu", weights_only=True)
+    if reads is not None:
+        reads.append({"file": f"{Path(path).parent.name}/{Path(path).name}",
+                      "bytes": Path(path).stat().st_size,
+                      "read_ms": (time.perf_counter() - t0) * 1e3})
+    return out
+
+
+def phase_cli(dev):
+    """Phase 7: the port's training and evaluation CLIs in process, on the
+    card, at full width (their own model configs: 800x1344 canvases, bf16,
+    seeded random weights), on synthetic DF2 and MovingFashion fixtures, in
+    a temporary directory deleted at the end."""
+    t_phase = time.perf_counter()
+    paths, report = {}, {}
+    rec = CliRecorder()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    cwd = os.getcwd()
+    os.chdir(root)  # the in-loop evaluations write logs_mf/ and logs_mdf2/ to the cwd
+    try:
+        with contextlib.ExitStack() as stack:
+            rec.install(stack)
+            _phase_cli(dev, root, rec, paths, report)
+    finally:
+        os.chdir(cwd)
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"cli: phase 7 took {report['seconds']:.1f} s")
+    return paths, report
+
+
+def _phase_cli(dev, root, rec, paths, report):
+    t0 = time.perf_counter()
+    img_dir, ann_dir = make_synthetic_df2(str(root / "df2"), n_products=8, views_per_side=3,
+                                          image_size=(600, 800))
+    ann = str(root / "df2" / "annots.json")
+    _, lines, _ = run_cli(deepf_to_coco.main, ["--image_dir", img_dir, "--annos_dir", ann_dir,
+                                               "--out", ann])
+    mf_train, mf_test = mf_fixture(root / "mf")
+    log(f"cli: fixtures in {time.perf_counter() - t0:.1f} s: DF2 {lines[-1]} (8 products x 3 "
+        f"street + 3 shop views of 600x800), MovingFashion 16 + 4 products x 12 frames of "
+        f"360x640")
+
+    # (2) phase 1, bit-reproducible: deterministic algorithms for steps 2 and 3
+    p1 = ["--root_train", img_dir, "--train_annots", ann, "--batch_size", "8", "--epochs", "2",
+          "--save_epochs", "1", "--save_steps", "4", "--clip_grad_norm", "5.0",
+          "--log_dir", str(root / "runs")]
+    with warnings.catch_warnings(record=True) as nondet:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        rec.reset()
+        launch_counts(zero=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, lines, full_s = run_cli(train_matchrcnn.main, p1 + ["--save_dir", str(root / "full")])
+        paths["cli_train_matchrcnn"] = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        (timed,) = rec.trainers
+        full_items, full_saves = list(rec.items), list(rec.saves)
+        # (3) the same command stopped once epoch 1's mid slot exists, then resumed
+        rec.reset(stop_epoch=1)
+        try:
+            run_cli(train_matchrcnn.main, p1 + ["--save_dir", str(root / "res")])
+            raise SystemExit("cli: the resume check's run was not stopped at epoch 1's mid slot")
+        except StopRun:
+            pass
+        stopped_items = list(rec.items)
+        rec.reset()
+        launch_counts(zero=True)
+        _, res_lines, res_s = run_cli(train_matchrcnn.main,
+                                      p1 + ["--save_dir", str(root / "res"), "--auto_resume"])
+        paths["cli_train_matchrcnn_resume"] = launch_counts()
+        res_items, res_loads = list(rec.items), list(rec.loads)
+        torch.use_deterministic_algorithms(False)
+    for path in ("cli_train_matchrcnn", "cli_train_matchrcnn_resume"):
+        check_launches(path, paths[path], TRAIN_PATH, P1_CLI_NEVER + ("roi_align_patch",))
+    step_ms = [x * 1e3 for x in timed.times]
+    n_steps, per_epoch = len(step_ms), len(step_ms) // 2
+    steady = step_ms[1:per_epoch] + step_ms[per_epoch + 1:]  # each epoch's first step meets the
+    # prefetcher starting up; the very first meets new shapes
+    med = statistics.median(steady)
+    losses = timed.losses
+    if not all(np.isfinite(v) for lf in losses for v in lf.values()):
+        raise SystemExit("cli: train_matchrcnn: a loss is not finite")
+    reads = report.setdefault("reads", [])
+    full = state_of(root / "full" / "matchrcnn" / "final.pt", reads)
+    res = state_of(root / "res" / "matchrcnn" / "final.pt")
+    init = init_model(serving_model_config(), video=False, seed=0, device="cpu")
+    trainable = {n for n, p in init.named_parameters() if p.requires_grad}
+    ref = init.state_dict()
+    del init
+    sd = full["model_state_dict"]
+    still = [k for k in trainable if torch.equal(sd[k], ref[k])]
+    frozen = [k for k in ref if k not in trainable and not k.startswith("roi_heads.")
+              and k.startswith("backbone.body.")]
+    changed = [k for k in frozen if not torch.equal(sd[k], ref[k])]
+    if still or changed:
+        raise SystemExit(f"cli: train_matchrcnn: trainable tensors that did not move {still[:5]}; "
+                         f"frozen tensors that changed {changed[:5]}")
+    log(f"cli: train_matchrcnn (the fixture's paths, batch 8, 2 epochs of {per_epoch} steps, "
+        f"pallas_resident, deterministic algorithms) in {full_s:.1f} s: step ms median "
+        f"{med:.1f} (steady steps), each " + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f"; {8e3 / med:.1f} images/s a step, {8 * n_steps / full_s:.1f} images/s over the "
+        f"command; peak memory {peak_gb:.2f} GiB; losses first {losses[0]['loss']:.4f} last "
+        f"{losses[-1]['loss']:.4f}, all finite; all {len(trainable)} trainable tensors moved, "
+        f"all {len(frozen)} frozen backbone tensors (stem, layer1, FrozenBN) bit-equal; "
+        f"launches {paths['cli_train_matchrcnn']}")
+    log("cli: checkpoints written by train_matchrcnn: " + ", ".join(
+        f"{n} {b / 1e9:.3f} GB in {ms:.0f} ms" for n, b, ms in full_saves)
+        + "; read on resume: " + ", ".join(f"{n} in {ms:.0f} ms" for n, ms in res_loads))
+    nondet = [w for w in nondet if "determinis" in str(w.message)]
+    log(f"cli: warnings of torch.use_deterministic_algorithms: "
+        f"{sorted({str(w.message)[:160] for w in nondet}) or 'none'}")
+
+    # the resume check: the items loaded, the file's counters and every tensor
+    skip = 4 * 8  # epoch 1's mid slot after its 4th batch
+    want_items = full_items[12 * 8 + skip:]
+    if res_items != want_items or stopped_items[:12 * 8 + skip] != full_items[:12 * 8 + skip]:
+        raise SystemExit(f"cli: resume: the items loaded differ from the uninterrupted run's "
+                         f"({len(res_items)} vs {len(want_items)})")
+    if (res["epoch"], res["optimizer_count"]) != (full["epoch"], full["optimizer_count"]) \
+            or full["optimizer_count"] != n_steps:
+        raise SystemExit(f"cli: resume: epoch/optimizer_count {res['epoch']}/"
+                         f"{res['optimizer_count']} against {full['epoch']}/"
+                         f"{full['optimizer_count']} ({n_steps} steps)")
+    if not any("mid-epoch resume: epoch 1, skipping 4 batches" in l for l in res_lines):
+        raise SystemExit("cli: resume: the rerun did not resume inside epoch 1")
+    diff = [k for k, v in sd.items() if not torch.equal(v, res["model_state_dict"][k])]
+    mom = full["optimizer_state_dict"]["state"]
+    mom_diff = [k for k, v in mom.items() if not torch.equal(
+        v["momentum_buffer"], res["optimizer_state_dict"]["state"][k]["momentum_buffer"])]
+    rel = max((float((v.float() - res["model_state_dict"][k].float()).abs().max()
+                     / max(float((v.float() - ref[k].float()).abs().max()), 1e-30))
+               for k, v in sd.items() if k in trainable), default=0.0)
+    log(f"cli: resume check (bit-equality under torch.use_deterministic_algorithms): stopped at "
+        f"epoch 1's mid slot, resumed with --auto_resume in {res_s:.1f} s; {len(res_items)} "
+        f"items loaded after the skip, equal to the uninterrupted run's (indices and flips); "
+        f"epoch {res['epoch']}, optimizer_count {res['optimizer_count']} equal; tensors that "
+        f"differ: {len(diff)} of {len(sd)} (max difference over the update {rel:.3g}), momentum "
+        f"buffers that differ: {len(mom_diff)}")
+    if diff or mom_diff:
+        raise SystemExit(f"cli: resume: the resumed run is not bit-equal: {diff[:5]}")
+    report["train_matchrcnn"] = {
+        "step_ms": step_ms, "step_ms_median_steady": med, "images_per_s_step": 8e3 / med,
+        "images_per_s_command": 8 * n_steps / full_s, "command_s": full_s, "peak_gib": peak_gb,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "checkpoints": [{"file": n, "bytes": b, "save_ms": ms} for n, b, ms in full_saves],
+        "loads": [{"file": n, "ms": ms} for n, ms in res_loads],
+        "resume": {"bit_equal": True, "resumed_s": res_s, "items": len(res_items),
+                   "optimizer_count": res["optimizer_count"],
+                   "nondeterministic_warnings": len(nondet)}}
+    del res
+
+    # (4) one epoch on the window RoIAlign (K6 forward, K5 backward)
+    rec.reset()
+    launch_counts(zero=True)
+    _, _, pallas_s = run_cli(train_matchrcnn.main, [
+        "--root_train", img_dir, "--train_annots", ann, "--epochs", "1", "--clip_grad_norm",
+        "5.0", "--roi_backend", "pallas", "--save_dir", str(root / "pallas"), "--log_dir",
+        str(root / "runs")])
+    paths["cli_train_matchrcnn_pallas"] = launch_counts()
+    check_launches("cli_train_matchrcnn_pallas", paths["cli_train_matchrcnn_pallas"],
+                   TRAIN_PALLAS_PATH, P1_CLI_NEVER)
+    (ptimed,) = rec.trainers
+    pms = [x * 1e3 for x in ptimed.times]
+    if not all(np.isfinite(v) for lf in ptimed.losses for v in lf.values()):
+        raise SystemExit("cli: train_matchrcnn --roi_backend pallas: a loss is not finite")
+    log(f"cli: train_matchrcnn --roi_backend pallas, 1 epoch in {pallas_s:.1f} s: step ms median "
+        f"{statistics.median(pms[1:]):.1f}, each " + ", ".join(f"{x:.1f}" for x in pms)
+        + f"; launches {paths['cli_train_matchrcnn_pallas']}")
+    report["train_matchrcnn_pallas"] = {"step_ms": pms, "command_s": pallas_s}
+    shutil.rmtree(root / "pallas")
+
+    # (5), (6) phase 2 from the phase-1 final.pt, then (7) both evaluations
+    p1_final = str(root / "full" / "matchrcnn" / "final.pt")
+    p1_sd = full["model_state_dict"]
+    mp_keys = [k for k in p1_sd if k.startswith("roi_heads.match_predictor.")]
+    for name, main_fn, argv, eval_fn, eval_argv in (
+            ("movingfashion", train_movingfashion.main,
+             ["--root", str(root / "mf"), "--train_annots", mf_train, "--test_annots", mf_test,
+              "--epochs", "2", "--eval_freq", "1"],
+             evaluate_movingfashion.main,
+             ["--root", str(root / "mf"), "--test_annots", mf_test]),
+            ("multidf2", train_multidf2.main,
+             ["--root_train", img_dir, "--train_annots", ann, "--root_test", img_dir,
+              "--test_annots", ann, "--epochs", "1", "--n_shops", "8"],
+             evaluate_multidf2.main,
+             ["--root_test", img_dir, "--test_annots", ann])):
+        rec.reset()
+        launch_counts(zero=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, lines, cmd_s = run_cli(main_fn, argv + [
+            "--pretrained_path", p1_final, "--save_dir", str(root / name), "--log_dir",
+            str(root / "runs")])
+        path = f"cli_train_{name}"
+        paths[path] = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        check_launches(path, paths[path], CLI_EVAL_PATH, SEAM_STEP_NEVER)
+        for i, ep in enumerate(rec.epochs):  # the epochs' own launches: no K3, K4 there
+            check_launches(f"{path} epoch {i}", ep["launches"], SEAM_PATH,
+                           SEAM_IDLE + SEAM_STEP_NEVER)
+        tag = "seam_mf" if name == "movingfashion" else "seam_mdf2"
+        final_path = root / name / tag / "final.pt"
+        final = state_of(final_path, reads)
+        fsd = final["model_state_dict"]
+        det_diff = [k for k in p1_sd if not k.startswith("roi_heads.match_predictor.")
+                    and not torch.equal(fsd[k], p1_sd[k])]
+        mp_moved = [k for k in mp_keys if not torch.equal(fsd[k], p1_sd[k])]
+        ta_moved = [k for k in mp_keys if not torch.equal(
+            fsd[k.replace("match_predictor", "temporal_aggregator")], p1_sd[k])]
+        steps = final["optimizer_count"]
+        aggr = [lf.get("aggregation_loss") for ep in rec.epochs for lf in ep["timed"].losses]
+        infer_ms = [x * 1e3 for ep in rec.epochs for x in ep["timed"].infer_s]
+        head_ms = [x * 1e3 for ep in rec.epochs for x in ep["timed"].step_s]
+        ingest_ms = [x * 1e3 for ep in rec.epochs for x in ep["ingest_s"]]
+        rows = [r for ep in rec.epochs for r in ep["timed"].rows]
+        n_images = 16 * 11 if name == "movingfashion" else 8 * 11
+        if det_diff:
+            raise SystemExit(f"cli: {path}: the frozen detector changed: {det_diff[:5]}")
+        if name == "multidf2" and mp_moved:
+            raise SystemExit(f"cli: {path}: the match predictor changed: {mp_moved[:5]}")
+        if steps == 0 or not ta_moved or (name == "movingfashion" and not mp_moved):
+            raise SystemExit(f"cli: {path}: {steps} head steps; heads moved: match predictor "
+                             f"{len(mp_moved)}, aggregator trunk {len(ta_moved)}")
+        if not all(np.isfinite(v) for ep in rec.epochs for lf in ep["timed"].losses
+                   for v in lf.values()):
+            raise SystemExit(f"cli: {path}: a loss is not finite")
+        log(f"cli: train_{name} (warm start from the phase-1 final.pt, {n_images} images a "
+            f"product batch) in {cmd_s:.1f} s: ms per product batch (inference + head step) "
+            + ", ".join(f"{a:.1f} + {b:.1f}" for a, b in zip(infer_ms, head_ms))
+            + "; of the inference, the host ingest (cv2 resize, canvas fill, one upload) "
+            + ", ".join(f"{x:.1f}" for x in ingest_ms) + f" ms; rows {rows}; aggregation "
+            f"losses {aggr}"
+            + (" (a zero aggregation loss: no weak positive reached it)"
+               if any(a == 0.0 for a in aggr) else "")
+            + f"; {steps} head steps; in-loop evaluations "
+            + ", ".join(f"{e['s']:.2f} s for {e['products']} products, top-1 {e['top1']}"
+                        for e in rec.evals)
+            + f"; peak memory {peak_gb:.2f} GiB; detector bit-equal, match predictor "
+            + ("bit-equal" if not mp_moved else f"moved ({len(mp_moved)} tensors)")
+            + f", aggregator trunk moved ({len(ta_moved)} tensors); launches {paths[path]}; "
+            f"epochs' own launches {[ep['launches'] for ep in rec.epochs]}")
+        log(f"cli: checkpoints written by train_{name}: " + ", ".join(
+            f"{n} {b / 1e9:.3f} GB in {ms:.0f} ms" for n, b, ms in rec.saves))
+        report[f"train_{name}"] = {
+            "command_s": cmd_s, "inference_ms": infer_ms, "ingest_ms": ingest_ms,
+            "head_step_ms": head_ms, "rows": rows,
+            "aggregation_loss": aggr, "head_steps": steps, "peak_gib": peak_gb,
+            "evals": list(rec.evals),
+            "checkpoints": [{"file": n, "bytes": b, "save_ms": ms} for n, b, ms in rec.saves]}
+
+        rec.reset()
+        launch_counts(zero=True)
+        top1, _, eval_s = run_cli(eval_fn, eval_argv + ["--ckpt_path", str(final_path)])
+        path = f"cli_evaluate_{name}"
+        paths[path] = launch_counts()
+        check_launches(path, paths[path], CLI_EVAL_PATH, SEAM_STEP_NEVER)
+        (ev,) = rec.evals
+        if len(top1) != 3 or not all(0.0 <= float(x) <= 1.0 for x in top1):
+            raise SystemExit(f"cli: {path}: top-1 {top1}")
+        log(f"cli: evaluate_{name} on its final.pt in {eval_s:.1f} s: {ev['products']} products "
+            f"in {ev['s']:.2f} s = {ev['s'] / max(ev['products'], 1):.3f} s a product; top-1 "
+            f"single/avg/aggr {[float(x) for x in top1]}; launches {paths[path]}")
+        report[f"evaluate_{name}"] = {"command_s": eval_s, "eval_s": ev["s"],
+                                      "products": ev["products"],
+                                      "s_per_product": ev["s"] / max(ev["products"], 1),
+                                      "top1": [float(x) for x in top1]}
+        if name == "movingfashion":
+            mf_final = str(final_path)
+        torch.cuda.empty_cache()
+
+    # (8) the port's own phase-2 file behind SeamRetrieval.from_checkpoint
+    t0 = time.perf_counter()
+    retr = SeamRetrieval.from_checkpoint(mf_final, device=dev)
+    load_s = time.perf_counter() - t0
+    data = json.loads(Path(mf_test).read_text())
+    shops = load_image_frames([str(root / "mf" / data[k]["img_path"]) for k in sorted(data)])
+    gallery = retr.build_gallery(shops, keys=sorted(data))
+    launch_counts(zero=True)
+    frames = decode_video_frames(str(root / "mf" / data[sorted(data)[0]]["video_paths"][0]), 10)
+    result = retr.retrieve(frames, gallery, k=2)
+    paths["cli_from_checkpoint_query"] = launch_counts()
+    check_launches("cli_from_checkpoint_query", paths["cli_from_checkpoint_query"],
+                   SERVING_PATH, SERVE_IDLE)
+    if len(result.keys) != 2 or not np.isfinite(result.scores).all():
+        raise SystemExit(f"cli: from_checkpoint: no top-2 answer ({result})")
+    log(f"cli: SeamRetrieval.from_checkpoint(train_movingfashion's final.pt) in {load_s:.1f} s; "
+        f"a query of 10 frames against its 4 test shops: top-2 {list(result.keys)} scores "
+        f"{[round(float(s), 4) for s in result.scores]}; launches "
+        f"{paths['cli_from_checkpoint_query']}")
+    report["from_checkpoint"] = {"load_s": load_s, "keys": list(result.keys)}
+    log("cli: checkpoint files read to the host (torch.load, weights_only): " + ", ".join(
+        f"{r['file']} {r['bytes'] / 1e9:.3f} GB in {r['read_ms']:.0f} ms" for r in reads))
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1515,6 +2024,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_launches, serve_report = phase_serve(dev)
     paths.update(serve_launches)
+    torch.cuda.empty_cache()
+    cli_launches, cli_report = phase_cli(dev)
+    paths.update(cli_launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1533,7 +2045,7 @@ def main() -> int:
         "train_step_buckets": step_buckets, "train_peak_gib": train_peak_gb,
         "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
         "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses,
-        "seam": seam_report, "serve": serve_report}))
+        "seam": seam_report, "serve": serve_report, "cli": cli_report}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

@@ -98,13 +98,14 @@ def load_pretrained_detector(path_or_state_dict: Union[str, Mapping[str, Any]],
     aggregator's; with none of those the aggregator is warm-started from
     the match predictor whatever ``clone_match_to_aggregator`` says, and its
     NLB and attention are ``fresh_aggregator_extras()``, as in the JAX
-    converter; with them it is only when the flag asks.  Keys the model lacks raise.  The JAX package's other
-    branch, an Orbax directory of its own phase-1 CLI, waits for the port's
-    ``ckpt/io`` (ROADMAP Queue 1, item 6)."""
+    converter; with them it is only when the flag asks.  Keys the model
+    lacks raise.  The port's own phase-1 and phase-2 files (``ckpt/io``) load
+    here as the reference's do.  An Orbax directory of the JAX package's CLIs
+    raises: ``tools/orbax_to_torch.py`` converts it to a torch file first."""
     if isinstance(path_or_state_dict, str) and os.path.isdir(path_or_state_dict):
         raise NotImplementedError(
-            f"{path_or_state_dict} is a directory: Orbax checkpoints of the JAX package's CLIs "
-            "wait for the port's ckpt/io (ROADMAP Queue 1, item 6); pass a torch file")
+            f"{path_or_state_dict} is a directory: convert an Orbax checkpoint of the JAX "
+            "package's CLIs with tools/orbax_to_torch.py and pass the torch file it writes")
     if isinstance(path_or_state_dict, str):
         path_or_state_dict = torch.load(path_or_state_dict, map_location="cpu",
                                         weights_only=True)
@@ -122,4 +123,25 @@ def load_pretrained_detector(path_or_state_dict: Union[str, Mapping[str, Any]],
     model.load_state_dict(sd, strict=False)
     if clone_match_to_aggregator or not has_ta:
         _clone(model)
+    return model
+
+
+@torch.no_grad()
+def import_imagenet_backbone(model: torch.nn.Module,
+                             resnet_state_dict: Mapping[str, Any]) -> torch.nn.Module:
+    """Warm-start the backbone body from a plain torchvision ``resnet50``
+    ImageNet state dict (keys ``conv1.weight``, ``layer1.0.conv1.weight``,
+    ...), in place: the reference's ``pretrained_backbone=True``
+    (models/matchrcnn.py:486) and the JAX package's function of the same
+    name.  ``fc.*`` and ``num_batches_tracked`` are dropped; every other key
+    becomes ``backbone.body.<key>``, and the keys must be exactly the body's.
+    The FPN and the heads keep their values.  Returns the model."""
+    sd = {f"backbone.body.{k}": torch.as_tensor(v) for k, v in resnet_state_dict.items()
+          if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
+    want = {k for k in model.state_dict()
+            if k.startswith("backbone.body.") and not k.endswith("num_batches_tracked")}
+    if set(sd) != want:
+        raise ValueError(f"import_imagenet_backbone: not a resnet50 body: missing "
+                         f"{sorted(want - set(sd))[:5]}, unexpected {sorted(set(sd) - want)[:5]}")
+    model.load_state_dict(sd, strict=False)
     return model

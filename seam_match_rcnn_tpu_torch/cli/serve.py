@@ -41,6 +41,7 @@ from ..config import EvalConfig, ModelConfig, serving_model_config
 from ..models.matchrcnn import init_model
 from ..serving import (Gallery, RetrievalResult, SeamRetrieval, decode_video_frames,
                        load_image_frames)
+from ._args import add_device_flag, check_device
 
 _VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
@@ -91,9 +92,7 @@ def build_argparser():
                    help="dataset-free demo: synthesize a MovingFashion "
                         "fixture, build its gallery, and answer one video "
                         "query end-to-end")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the model: 'cuda' (the default; raises "
-                        "without a card) or 'cpu'")
+    add_device_flag(p)
     return p
 
 
@@ -229,9 +228,7 @@ def make_http_server(retr: SeamRetrieval, gallery: Gallery, host: str,
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (torch.cuda.is_available() is "
-                           "False); pass --device cpu to serve on the CPU")
+    check_device(args.device)
     if args.synthetic:
         import tempfile
 
@@ -254,7 +251,7 @@ def main(argv=None):
     ingest = "device" if args.device_ingest else "host"
     if args.ckpt_path:
         # a directory (the JAX package's Orbax checkpoint) raises
-        # NotImplementedError there: it waits for the port's ckpt/io
+        # NotImplementedError there: tools/orbax_to_torch.py converts it
         retr = SeamRetrieval.from_checkpoint(
             args.ckpt_path, cfg=cfg, cfg_eval=ecfg, device=args.device, chunk=args.chunk,
             ingest=ingest)

@@ -125,8 +125,9 @@ class SeamRetrieval:
         ``device`` (the card unless asked otherwise), its aggregator
         warm-started from the match predictor, with the JAX converter's
         fresh NLB and attention, when the file has none;
-        ``cfg_eval`` becomes the instance's retrieval ``cfg``.  The JAX
-        package's Orbax directories wait for the port's ``ckpt/io``."""
+        ``cfg_eval`` becomes the instance's retrieval ``cfg``.  The port's
+        own phase-1 and phase-2 files load too; an Orbax directory of the
+        JAX package raises (``tools/orbax_to_torch.py`` converts it)."""
         model = init_model(cfg or serving_model_config(), video=True, device=device)
         load_pretrained_detector(path, model, clone_match_to_aggregator=False)
         return cls(model, cfg=cfg_eval, **kw)

@@ -98,17 +98,26 @@ def train_one_epoch_matchrcnn(model, trainer, data: Iterable[Tuple[List[np.ndarr
                                                                    List[Dict], List[int]]],
                               epoch: int, generator: torch.Generator, print_freq: int = 100,
                               writer: Optional[ScalarWriter] = None, g_max: int = 24,
-                              steps_per_epoch: Optional[int] = None) -> Dict[str, float]:
+                              steps_per_epoch: Optional[int] = None, start_step: int = 0,
+                              save_every_steps: int = 0, save_fn=None) -> Dict[str, float]:
     """Phase-1 loop over ``data``, which yields (images, targets, ids)
     batches: HWC images in [0, 1] (or uint8) and per-image target dicts
     (boxes in the image's pixels, labels, pair_ids, styles, sources,
     mask_crops).  ``trainer`` is a ``Phase1Trainer``; its samplers draw from
-    ``generator``.  Returns the last step's losses."""
+    ``generator``.  Returns the last step's losses.
+
+    Mid-epoch checkpoints (no reference equivalent): ``save_fn(step_in_epoch)``
+    runs after every ``save_every_steps`` batches, after the update; the
+    caller's closure saves the model, the optimizer and ``generator``'s
+    state, and resuming from them with the remaining batches reproduces the
+    uninterrupted run.  ``start_step`` offsets the step counter when the
+    caller has already skipped that many batches."""
     device = next(model.parameters()).device
     logger = MetricLogger()
     lf: Dict[str, float] = {}
     for count, (images, targets, ids) in enumerate(
-            logger.log_every(data, print_freq, f"Epoch: [{epoch}]", total=steps_per_epoch)):
+            logger.log_every(data, print_freq, f"Epoch: [{epoch}]", total=steps_per_epoch),
+            start=start_step):
         losses = trainer.step(bucket_batches(model, images, targets, g_max, device), generator)
         lf = {k: float(v) for k, v in losses.items()}
         _check_finite(lf, f"epoch {epoch} step {count} ids {ids}")
@@ -116,6 +125,8 @@ def train_one_epoch_matchrcnn(model, trainer, data: Iterable[Tuple[List[np.ndarr
         if writer is not None and count % print_freq == 0:
             for k, v in lf.items():
                 writer.add_scalar(k, v, global_step=trainer.optimizer.count)
+        if save_fn is not None and save_every_steps > 0 and (count + 1) % save_every_steps == 0:
+            save_fn(count)
     return lf
 
 

@@ -73,6 +73,23 @@ class SGD:
         self.optimizer.step()
         self.count += 1
 
+    def state_dict(self) -> Dict[str, object]:
+        """The checkpoint entries of the optimizer: the torch optimizer's
+        state dict (momentum buffers keyed by position in ``params``) as the
+        reference's ``optimizer_state_dict``, and the step ``count`` that
+        drives the schedule as ``optimizer_count``."""
+        return {"optimizer_state_dict": self.optimizer.state_dict(),
+                "optimizer_count": self.count}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restore ``state_dict()``'s entries (a checkpoint payload holds
+        them).  The momentum buffers go to their parameters by position, so
+        ``params`` must be the saving run's trainable list in its order:
+        build the optimizer the same way (``sgd`` with the same frozen
+        mask)."""
+        self.optimizer.load_state_dict(state["optimizer_state_dict"])
+        self.count = int(state["optimizer_count"])
+
 
 def sgd(model: torch.nn.Module, schedule: Callable[[int], float], momentum: float = 0.9,
         weight_decay: float = 0.0, clip_grad_norm: float = 0.0) -> SGD:

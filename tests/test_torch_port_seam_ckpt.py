@@ -145,5 +145,5 @@ def test_seam_retrieval_from_checkpoint(source, tmp_path):
         assert torch.equal(sd[k], v), k
     assert retr.runner.chunk == 3 and retr.model.video
     np.testing.assert_array_equal(retr._aw.numpy(), source[TA + "last.weight"].numpy())
-    with pytest.raises(NotImplementedError, match="ckpt/io"):
+    with pytest.raises(NotImplementedError, match="orbax_to_torch"):
         SeamRetrieval.from_checkpoint(str(tmp_path), cfg=CFG, device="cpu")
