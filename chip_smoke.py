@@ -75,9 +75,26 @@ Phases, one line each:
                (and, MultiDF2, match predictor) and moved heads; the two
                eval CLIs on their final.pt (seconds a product, top-1); and
                SeamRetrieval.from_checkpoint on the MovingFashion file
-               answering one query.
-For phases 3 to 7 the launch counters are zeroed right before each path
-and read right after; every kernel of the path must have run (on the seam
+               answering one query;
+  8. dist    - the distributed paths on two ranks (torch.multiprocessing
+               spawn) that share the one card over Gloo, since NCCL refuses
+               two ranks on one device: the full-width phase-1 DP step
+               (Phase1Trainer over a data mesh, 4 images a rank, 3 steps
+               bit-equal across ranks; one "pallas" step; one step in f32
+               held against the one-process step on the 8 images), the
+               MovingFashion and MultiDF2 head steps over both ranks' rows
+               against the one-process step (one rank without rows; none on
+               any rank skips), InferenceRunner(mesh) at chunk 8 against one
+               process at chunk 4 (bit-equal), score_matrix_sharded
+               1000x1000 over model=2, and cli/train_matchrcnn under
+               torchrun's environment (stopped after a mid save, resumed
+               with --auto_resume: rank 0 alone writes, the ranks agree on
+               the file and end bit-equal); then a one-rank NCCL group
+               running two phase-1 steps and a gather on the card.  A rank
+               that fails, or runs past 600 s, fails the phase.
+For phases 3 to 8 the launch counters are zeroed right before each path
+and read right after (in phase 8 in each rank's process, reported per
+rank); every kernel of the path must have run (on the seam
 paths K3, K4 and K5 must not; on the serve paths K5-K7 must not, nor K3
 and K4 on a detect path; on the phase-1 CLI paths K3, K4 and K7 must not,
 on the phase-2 training epochs K3-K7 must not, and the CLIs' evaluations
@@ -91,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -111,6 +129,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
@@ -144,7 +163,7 @@ from seam_match_rcnn_tpu_torch.train.engine import (train_one_epoch_matchrcnn,
                                                      train_one_epoch_multidf2)
 from seam_match_rcnn_tpu_torch.train.optim import SGD, multistep_warmup_schedule, sgd
 from seam_match_rcnn_tpu_torch.train.seam import (compare_head_updates, make_mdf2_head_step,
-                                                  make_seam_head_step)
+                                                  make_seam_head_step, select_rows_host)
 from seam_match_rcnn_tpu_torch.train.steps import Phase1Trainer
 
 KERNELS = {
@@ -877,13 +896,13 @@ class TimedTrainer:
     """Phase1Trainer with a synchronised host clock around each step."""
 
     def __init__(self, trainer):
-        self.trainer, self.optimizer = trainer, trainer.optimizer
+        self.trainer, self.optimizer, self.group = trainer, trainer.optimizer, trainer.group
         self.times, self.losses, self.buckets = [], [], []
 
-    def step(self, batches, generator=None):
+    def step(self, batches, generator=None, draws=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = self.trainer.step(batches, generator)
+        out = self.trainer.step(batches, generator, draws)
         torch.cuda.synchronize()
         self.times.append(time.perf_counter() - t0)
         self.losses.append({k: float(v) for k, v in out.items()})
@@ -891,17 +910,22 @@ class TimedTrainer:
         return out
 
 
-def train_model(dev, roi_align_backend):
+def train_model(dev, roi_align_backend, mesh=None, compute_dtype=None):
     """The full-width phase-1 model (seeded random weights, the stem and
-    layer1 frozen) and its timed trainer with the phase-1 optimizer."""
+    layer1 frozen; bf16 unless ``compute_dtype`` says otherwise) and its
+    timed trainer with the phase-1 optimizer (over ``mesh``'s data axis when
+    given)."""
     tc = TrainConfig()
     cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend=roi_align_backend),
                                freeze_backbone_stages=True)
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     model = init_model(cfg, video=False, seed=0, device=dev)
     schedule = multistep_warmup_schedule(tc.lr, tc.milestones, tc.gamma, 1000,
                                          tc.warmup_iters, tc.warmup_factor)
     return model, TimedTrainer(Phase1Trainer(model, sgd(model, schedule, tc.momentum,
-                                                        tc.weight_decay, tc.clip_grad_norm)))
+                                                        tc.weight_decay, tc.clip_grad_norm),
+                                             mesh))
 
 
 def phase_train(dev):
@@ -1008,6 +1032,7 @@ class Timed:
     def __init__(self, runner, step, heads, capture, score_thresh):
         self.runner, self.step, self.heads, self.capture = runner, step, heads, capture
         self.optimizer, self.score_thresh = step.optimizer, score_thresh
+        self.group = getattr(step, "group", None)
         self.infer_s, self.step_s, self.losses, self.rows, self.shops = [], [], [], [], []
         self.roi_bytes, self.candidates = [], []
         self.captured = None
@@ -1613,8 +1638,8 @@ class CliRecorder:
             return item
 
         def trainer(orig):
-            def make(model, optimizer):
-                t = TimedTrainer(orig(model, optimizer))
+            def make(model, optimizer, mesh=None):
+                t = TimedTrainer(orig(model, optimizer, mesh))
                 rec.trainers.append(t)
                 return t
             return make
@@ -1991,6 +2016,572 @@ def _phase_cli(dev, root, rec, paths, report):
 
 
 
+# ---- phase 8: the distributed paths, two ranks on the one card ---------------------------
+
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 600
+DIST_ORDER = (0, 1, 6, 7, 2, 3, 4, 5)  # the global batch: rank 0's images, then rank 1's
+DIST_TRAIN_SIZES = [(600, 800), (720, 1280), (480, 640), (768, 1024), (540, 960), (500, 900),
+                    (640, 960), (450, 800)]
+
+
+def dist_draws(model, batch, n_images, seed, g_max=24):
+    """The samplers' uniforms of ``n_images`` images on ``batch``'s canvas,
+    drawn from ``seed`` (the same on every rank): "rpn" [n, anchors], "roi"
+    [n, post_nms_top_n_train + g_max]."""
+    from seam_match_rcnn_tpu_torch.models.anchors import grid_anchors
+
+    cfg, dev = model.cfg, batch["images"].device
+    canvas = h, w = tuple(batch["images"].shape[-2:])
+    shapes = [(h // s, w // s) for s in (4, 8, 16, 32)]
+    shapes.append(((shapes[-1][0] - 1) // 2 + 1, (shapes[-1][1] - 1) // 2 + 1))
+    n_anchors = sum(len(a) for a in grid_anchors(canvas, tuple(shapes), tuple(cfg.anchors.sizes),
+                                                  tuple(cfg.anchors.aspect_ratios)))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"rpn": torch.rand((n_images, n_anchors), generator=gen, device=dev),
+            "roi": torch.rand((n_images, cfg.rpn.post_nms_top_n_train + g_max), generator=gen,
+                              device=dev)}
+
+
+def trained_state(model, optimizer=None):
+    """The trainable parameters and BatchNorm statistics (and with
+    ``optimizer`` the momentum buffers), cloned on the card."""
+    out = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    out.update({n: b.detach().clone() for n, b in model.named_buffers() if "running_" in n})
+    if optimizer is not None:
+        for i, p in enumerate(optimizer.params):
+            buf = optimizer.optimizer.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                out[f"momentum:{i}"] = buf.detach().clone()
+    return out
+
+
+def state_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        t = state[k].detach().cpu().contiguous().reshape(-1)
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def timed_sync(optimizer, times):
+    """``optimizer``'s gradient all-reduce, timed on a synchronised clock."""
+    sync = optimizer._sync_gradients
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    optimizer._sync_gradients = run
+
+
+def dist_train(rank, dev, mesh):
+    """The phase-1 DP step at full width: 3 global steps of 8 images (4 a
+    rank, one bucket, street and shop on both ranks, every pair across
+    them) of the bf16 training model, bit-equal ranks; one step under the
+    "pallas" backend; and one step of the model in f32, whose update rank 0
+    holds against the one-process step on the 8 images with the same draws:
+    the whole update (every trainable tensor and BatchNorm statistic, one
+    L2 norm) within 1e-3 of the one-process update's norm, each tensor
+    within 0.1 of its own update.  A forward over 4 images is not bit-equal
+    to one over 8 (cuDNN's algorithms and sum orders differ; in bf16 the
+    rounding of every activation), and near-tied proposals then rank apart
+    before the samplers, which moves the small updates of layer2 by a few
+    percent; a W-fold or 1/W gradient, or a rank-local BatchNorm, is off by
+    half a tensor's update or more."""
+    from seam_match_rcnn_tpu_torch.parallel.mesh import shard_batch
+    from seam_match_rcnn_tpu_torch.train.engine import bucket_batches
+
+    images, targets = train_batch(np.random.RandomState(11), DIST_TRAIN_SIZES)
+    images, targets = [images[i] for i in DIST_ORDER], [targets[i] for i in DIST_ORDER]
+    out = {}
+    for name, backend, dtype, n_steps in (("pallas_resident", "pallas_resident", None, 3),
+                                          ("pallas", "pallas", None, 1),
+                                          ("f32", "pallas_resident", "float32", 1)):
+        model, timed = train_model(dev, backend, mesh, dtype)
+        opt = timed.optimizer
+        ar_ms = []
+        timed_sync(opt, ar_ms)
+        glob = bucket_batches(model, images, targets, 24, dev)
+        assert len(glob) == 1
+        batches = shard_batch(glob, mesh)  # this rank's 4 images
+        before = trained_state(model)
+        launch_counts(zero=True)
+        after1 = None
+        for s in range(n_steps):
+            timed.step(batches, draws=[shard_batch(dist_draws(model, glob[0], 8, 1000 + s),
+                                                   mesh)])
+            if s == 0:
+                after1 = trained_state(model)
+        counts = launch_counts()
+        grad_bytes = 4 * (sum(p.numel() for p in opt.params) + len(opt.params))
+        out[name] = {"step_ms": [t * 1e3 for t in timed.times], "allreduce_ms": ar_ms,
+                     "grad_bytes": grad_bytes, "launches": counts, "losses": timed.losses,
+                     "digest": state_digest(trained_state(model, opt))}
+        log(f"dist rank {rank}: phase-1 DP steps ({name}, 4 images a rank, one bucket) "
+            + ", ".join(f"{t:.1f}" for t in out[name]["step_ms"]) + " ms; gradient "
+            f"all-reduce {', '.join(f'{t:.1f}' for t in ar_ms)} ms of {grad_bytes / 1e6:.1f} MB; "
+            f"launches K1 {counts['fused_stem']}, K2 {counts['roi_align']}, K5 "
+            f"{counts['roi_align_adjoint']}, K6 {counts['roi_align_patch']}")
+        need = TRAIN_PATH if backend == "pallas_resident" else TRAIN_PALLAS_PATH
+        missing = [n for n in need if counts[n] == 0]
+        if missing:
+            raise SystemExit(f"dist rank {rank}: the DP step ({name}) never launched {missing}")
+        if name == "f32":
+            dist.barrier()
+            if rank == 0:  # the one-process step on the global batch, the same draws
+                ref, ref_timed = train_model(dev, backend, compute_dtype=dtype)
+                ref_timed.step(glob, draws=[dist_draws(ref, glob[0], 8, 1000)])
+                want = trained_state(ref)
+                bad, worst = compare_head_updates(before, want, after1, rtol=0.1)
+                whole = float(torch.sqrt(sum(((after1[k] - want[k]).double() ** 2).sum()
+                                             for k in want) / sum(
+                    ((want[k] - before[k]).double() ** 2).sum() for k in want)))
+                out["one_process"] = {"bad": bad[:5], "worst": worst, "whole": whole,
+                                      "step_ms": ref_timed.times[0] * 1e3,
+                                      "losses": ref_timed.losses[0]}
+                log(f"dist rank 0: the f32 DP update against the one-process step on the 8 "
+                    f"images: the whole update {whole:.3e} off (limit 1e-3); worst tensor "
+                    f"{worst:.3e} of its update (limit 0.1), {len(bad)} outside; losses "
+                    f"{timed.losses[0]['loss']:.6f} / {ref_timed.losses[0]['loss']:.6f}")
+                if bad or not whole <= 1e-3:
+                    raise SystemExit(f"dist: the DP update is off the one-process step by "
+                                     f"{whole:.3e}: {bad[:5]}")
+                del ref, ref_timed, want
+            dist.barrier()
+        del model, timed, opt, before, after1, glob, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_head_batches(kind, dev):
+    """Both ranks' own product batches at phase 5's shapes (256 rows,
+    MovingFashion 16 products x (1 shop + 10 frames), MultiDF2 8 x (1 + 10),
+    2 detections an image), from seeds, the same on every rank."""
+    out = []
+    for r in range(DIST_WORLD):
+        rng = np.random.RandomState(100 + r)
+        gen = torch.Generator(device=dev).manual_seed(100 + r)
+        p, t = (16, 10) if kind == "mf" else (8, 10)
+        n, d = p * (1 + t), 2
+        roi = (torch.randn((n, d, 256, 14, 14), generator=gen, device=dev)
+               + 2.0 * torch.randn((n, d, 256, 1, 1), generator=gen, device=dev))
+        if kind == "mf":
+            outs = [{"scores": rng.uniform(0.2, 1.0, d).astype(np.float32),
+                     "boxes": np.sort(rng.uniform(0, 500, (d, 2, 2)), 1).transpose(
+                         0, 2, 1).reshape(d, 4).astype(np.float32),
+                     "valid": np.ones(d, bool)} for _ in range(n)]
+            sel = select_rows_host(outs, ([1] + [0] * t) * p, [i // (1 + t) for i in range(n)],
+                                   0.1, p, t, 256)
+            batch = {k: getattr(sel, k) for k in ("row_img", "row_det", "valid", "types",
+                                                  "prod", "img_slot", "shop_row")}
+            batch["aggr_weight"] = np.float32(1.0)
+        else:
+            rows = [(j * (1 + t) + f, 0) for j in range(p) for f in range(1 + t)]
+            row_img = np.zeros(256, np.int32)
+            row_det = np.zeros(256, np.int32)
+            row_img[:len(rows)] = [r_[0] for r_ in rows]
+            seq = np.asarray([[j * (1 + t) + 1 + f for f in range(t)] for j in range(p)], np.int32)
+            batch = {"row_img": row_img, "row_det": row_det, "seq_gather": seq,
+                     "seq_mask": np.ones((p, t), bool),
+                     "shop_row": np.asarray([j * (1 + t) for j in range(p)], np.int32)}
+        batch["roi_src"] = roi
+        out.append(batch)
+    return out
+
+
+def dist_heads(rank, dev, mesh):
+    """The MovingFashion and MultiDF2 head steps over both ranks' own product
+    batches (``seam.global_products``), against the one-process step on the
+    concatenated batch; a case where one rank selects no rows."""
+    from seam_match_rcnn_tpu_torch.models.match_head import MatchPredictor, TemporalAggregator
+    from seam_match_rcnn_tpu_torch.parallel.collectives import all_gather
+    from seam_match_rcnn_tpu_torch.train.seam import global_products
+
+    group = mesh.get_group("data")
+    out = {}
+    for kind, empty in (("mf", None), ("mf", 1), ("mdf2", None), ("mdf2", 0)):
+        name = f"{kind}" + ("" if empty is None else f"_rank{empty}_empty")
+        locals_ = dist_head_batches(kind, dev)
+        p, t = (16, 10) if kind == "mf" else (8, 10)
+        glob = []
+        for r, b in enumerate(locals_):
+            b = {k: (v if isinstance(v, torch.Tensor) else np.asarray(v).copy())
+                 for k, v in b.items()}
+            if r == empty:
+                for key in ("valid", "seq_mask"):
+                    if key in b:
+                        b[key][:] = False
+                b["shop_row"][:] = -1
+            b["has_rows"] = np.asarray([r != empty])
+            glob.append(b)
+        mine = global_products({k: v for k, v in glob[rank].items() if k != "roi_src"}, rank,
+                               DIST_WORLD, p, t, lambda a: all_gather(
+                                   torch.as_tensor(a, device=dev), group).cpu().numpy())
+
+        def heads():
+            torch.manual_seed(7)
+            return (MatchPredictor(torch.float32).to(dev),
+                    TemporalAggregator(torch.float32, "xla").to(dev))
+
+        def step(mp, ta, use_mesh):
+            tc = SEAMTrainConfig()
+            lr = tc.lr if kind == "mf" else 0.02
+            params = list(ta.parameters()) + ([] if kind == "mdf2" else list(mp.parameters()))
+            opt = SGD(params, lambda s: lr, tc.momentum, tc.weight_decay)
+            m = mesh if use_mesh else None
+            if kind == "mf":
+                return make_seam_head_step(mp, ta, opt, frames_per_product=t, n_frames=3, mesh=m)
+            return make_mdf2_head_step(ta, opt, mesh=m)
+
+        mp, ta = heads()
+        before = {f"mp.{k}": v.clone() for k, v in mp.state_dict().items()}
+        before.update({f"ta.{k}": v.clone() for k, v in ta.state_dict().items()})
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in mine.items()}
+        batch["roi_src"] = glob[rank]["roi_src"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step(mp, ta, True)(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {f"mp.{k}": v for k, v in mp.state_dict().items()}
+        got.update({f"ta.{k}": v for k, v in ta.state_dict().items()})
+        # the one-process step on the concatenated batch (rank 0's rows and images first)
+        n0 = glob[0]["roi_src"].shape[0]
+        one = {"roi_src": torch.cat([g["roi_src"] for g in glob]),
+               "row_img": np.concatenate([glob[0]["row_img"], glob[1]["row_img"] + n0]),
+               "row_det": np.concatenate([g["row_det"] for g in glob])}
+        for key in ("valid", "types"):
+            if key in mine:
+                one[key] = np.concatenate([g[key] for g in glob])
+        if kind == "mf":
+            one["prod"] = np.concatenate([glob[r]["prod"] + r * p for r in range(DIST_WORLD)])
+            one["img_slot"] = np.concatenate([glob[r]["img_slot"] + r * p * t
+                                              for r in range(DIST_WORLD)])
+            one["aggr_weight"] = mine["aggr_weight"]
+        for key in ("shop_row", "seq_gather", "seq_mask"):
+            if key in mine:
+                one[key] = mine[key]
+        one = {k: torch.as_tensor(v, device=dev) for k, v in one.items()}
+        rmp, rta = heads()
+        want_losses = step(rmp, rta, False)(one)
+        want = {f"mp.{k}": v for k, v in rmp.state_dict().items()}
+        want.update({f"ta.{k}": v for k, v in rta.state_dict().items()})
+        bad, worst = compare_head_updates(before, want, got, rtol=5e-3)
+        own = glob[rank]
+        rows = int(own["valid"].sum()) if "valid" in own else int(
+            own["seq_mask"].sum() + (own["shop_row"] >= 0).sum())
+        out[name] = {"ms": ms, "worst": worst, "bad": bad[:5], "digest": state_digest(got),
+                     "losses": {k: float(v) for k, v in losses.items()},
+                     "one_process_losses": {k: float(v) for k, v in want_losses.items()}}
+        log(f"dist rank {rank}: {kind} head step over both ranks' rows ({name}; this rank "
+            f"{rows} rows of its 256) {ms:.1f} ms; loss {out[name]['losses']['loss']:.6f}, "
+            f"one process {out[name]['one_process_losses']['loss']:.6f}; worst parameter "
+            f"{worst:.3e} of its update (limit 5e-3)")
+        if bad:
+            raise SystemExit(f"dist: the {name} head step is off the one-process step: {bad}")
+    # no rows on any rank: every rank skips, nothing moves
+    mp, ta = MatchPredictor(torch.float32).to(dev), TemporalAggregator(torch.float32, "xla").to(dev)
+    sd = {k: v.clone() for k, v in ta.state_dict().items()}
+    opt = SGD(list(mp.parameters()) + list(ta.parameters()), lambda s: 0.04, 0.9, 5e-4)
+    b = {k: (v if isinstance(v, torch.Tensor) else np.asarray(v).copy())
+         for k, v in dist_head_batches("mf", dev)[rank].items()}
+    b["valid"][:] = False
+    b["shop_row"][:] = -1
+    b["has_rows"] = np.asarray([False])
+    roi = b.pop("roi_src")
+    b = {k: torch.as_tensor(v, device=dev) for k, v in global_products(
+        b, rank, DIST_WORLD, 16, 10, lambda a: all_gather(torch.as_tensor(a, device=dev),
+                                                         group).cpu().numpy()).items()}
+    b["roi_src"] = roi
+    skipped = make_seam_head_step(mp, ta, opt, frames_per_product=10, mesh=mesh)(b) is None
+    if not skipped or any(not torch.equal(v, ta.state_dict()[k]) for k, v in sd.items()):
+        raise SystemExit("dist: a head step with no rows on any rank did not skip")
+    out["all_empty_skipped"] = skipped
+    log(f"dist rank {rank}: no rows on any rank: the step skipped on every rank")
+    return out
+
+
+def dist_runner(rank, dev, mesh):
+    """``InferenceRunner(mesh=...)`` at chunk 8 on the serving model against
+    the one-process runner at chunk 4 (each rank's share of a chunk), on 8
+    landscape and 8 portrait images: bit-equal."""
+    model = serving_model(dev)
+    rng = np.random.RandomState(21)
+    images = [synthetic_image(rng, h, w)[0] for h, w in [(600, 800)] * 8 + [(800, 600)] * 8]
+    launch_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = InferenceRunner(model, chunk=8, mesh=mesh).run(images, device_keys=())[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    with torch.no_grad():
+        want = InferenceRunner(model, chunk=4)(images)
+    diff = [f"{i}:{k}" for i, (a, b) in enumerate(zip(got, want)) for k in b
+            if not np.array_equal(a[k], b[k])]
+    log(f"dist rank {rank}: runner mesh (chunk 8 over 2 ranks, 16 images) {ms:.1f} ms; "
+        f"against one process at chunk 4: {len(diff)} arrays differ; launches K1 "
+        f"{counts['fused_stem']}, K2 {counts['roi_align']}")
+    if diff or counts["fused_stem"] == 0 or counts["roi_align"] == 0:
+        raise SystemExit(f"dist: runner mesh: differs at {diff[:5]}, launches {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches": counts, "n_images": len(images)}
+
+
+def dist_score(rank, dev):
+    """``score_matrix_sharded`` 1000x1000 over ``model=2`` against
+    ``score_matrix`` (K4 on the whole matrix), within K4's 1e-5."""
+    from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix_sharded
+    from seam_match_rcnn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, model=DIST_WORLD)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, y = (torch.randn((1000, 256), generator=gen, device=dev) for _ in range(2))
+    w = torch.randn((2, 256), generator=gen, device=dev) * 0.05
+    b = torch.randn((2,), generator=gen, device=dev)
+    launch_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = score_matrix_sharded(x, y, w, b, mesh, axis="model")
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    err = float(np.abs(got - score_matrix(x, y, w, b)).max())
+    log(f"dist rank {rank}: score_matrix_sharded 1000x1000 over model=2 {ms:.2f} ms (500 "
+        f"queries a rank, one gather), max abs err {err:.3g} against score_matrix (limit "
+        f"1e-5); launches K4 {counts['pairwise_scores']}")
+    if err > 1e-5 or counts["pairwise_scores"] == 0:
+        raise SystemExit(f"dist: score_matrix_sharded off by {err}, launches {counts}")
+    return {"ms": ms, "max_abs_err": err, "launches": counts}
+
+
+def dist_cli(rank, dev, root: Path, port: int):
+    """``cli/train_matchrcnn.py`` under torchrun's environment
+    (SEAM_MULTIHOST=1, the env rendezvous, SEAM_DIST_BACKEND=gloo) on the DF2
+    fixture at full width, batch 8 a rank: stopped after its first mid save
+    (step 1), rerun with ``--auto_resume``.  Returns the files this rank
+    wrote, the file each rank resumed from, step times, launches and a
+    digest of the trained model and momentum."""
+    from seam_match_rcnn_tpu_torch.cli import train_matchrcnn as cli
+
+    os.environ.update(SEAM_MULTIHOST="1", SEAM_DIST_BACKEND="gloo", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(DIST_WORLD),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(DIST_WORLD))
+    wrote, resumed, trainers = [], [], []
+    argv = ["--root_train", str(root / "df2" / "image"), "--train_annots",
+            str(root / "df2" / "annots.json"), "--batch_size", "8", "--epochs", "1",
+            "--save_epochs", "1", "--save_steps", "2", "--save_dir", str(root / "ckpt"),
+            "--log_dir", str(root / "runs"), "--device", dev.type]
+
+    class Trainer(cli.Phase1Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.times = []
+            trainers.append(self)
+
+        def step(self, batches, generator=None, draws=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().step(batches, generator, draws)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            return out
+
+    def stop_after(orig):
+        def save_mid(self, payload):
+            orig(self, payload)
+            raise StopRun()
+        return save_mid
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(os, "replace", lambda orig: lambda src, dst: (
+            wrote.append(os.path.basename(dst)), orig(src, dst))[1]))
+        stack.enter_context(patched(ckpt_io, "resolve_auto_resume", lambda orig: lambda *a: (
+            resumed.append(orig(*a)), resumed[-1])[1]))
+        stack.enter_context(patched(cli, "Phase1Trainer", lambda orig: Trainer))
+        launch_counts(zero=True)
+        t0 = time.perf_counter()
+        with patched(ckpt_io.CheckpointManager, "save_mid", stop_after):
+            try:
+                cli.main(argv)
+            except StopRun:
+                pass
+        cli.main(argv + ["--auto_resume"])
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+    model, opt = trainers[-1].model, trainers[-1].optimizer
+    step_ms = [t * 1e3 for tr in trainers for t in tr.times]
+    log(f"dist rank {rank}: train_matchrcnn under torchrun's environment (2 ranks, batch 8 a "
+        f"rank): steps " + ", ".join(f"{t:.1f}" for t in step_ms) + f" ms, {seconds:.1f} s "
+        f"with the stop and the resume; wrote {wrote}; resumed from {resumed}; launches K1 "
+        f"{counts['fused_stem']}, K2 {counts['roi_align']}, K5 {counts['roi_align_adjoint']}")
+    missing = [n for n in TRAIN_PATH if counts[n] == 0]
+    if missing:
+        raise SystemExit(f"dist: train_matchrcnn never launched {missing}")
+    return {"wrote": wrote, "resumed": resumed, "step_ms": step_ms, "seconds": seconds,
+            "count": opt.count, "launches": counts,
+            "digest": state_digest(dict(trained_state(model, opt),
+                                        **{f"all:{k}": v for k, v in
+                                           model.state_dict().items()}))}
+
+
+def dist_rank(rank, root, port, dev):
+    """One rank of phase 8 (a process of its own, on the parent's card)."""
+    import pickle
+
+    from seam_match_rcnn_tpu_torch.parallel.mesh import make_mesh
+
+    root = Path(root)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    native.library()  # built by the parent
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
+                            world_size=DIST_WORLD)
+    out = {}
+    try:
+        mesh = make_mesh(data=DIST_WORLD)
+        out["train"] = dist_train(rank, dev, mesh)
+        out["heads"] = dist_heads(rank, dev, mesh)
+        out["runner"] = dist_runner(rank, dev, mesh)
+        out["score"] = dist_score(rank, dev)
+        dist.destroy_process_group()
+        out["cli"] = dist_cli(rank, dev, root, port)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(root / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_nccl(dev, root: Path):
+    """A one-rank NCCL group on the card: a full-width phase-1 step through
+    ``Phase1Trainer(mesh=make_mesh(data=1))``, its gradient all-reduce and
+    RoI gather over NCCL."""
+    from seam_match_rcnn_tpu_torch.parallel.collectives import all_gather
+    from seam_match_rcnn_tpu_torch.parallel.mesh import make_mesh
+    from seam_match_rcnn_tpu_torch.train.engine import bucket_batches
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data=1)
+        model, timed = train_model(dev, "pallas_resident", mesh)
+        ar_ms = []
+        timed_sync(timed.optimizer, ar_ms)
+        images, targets = train_batch(np.random.RandomState(11), DIST_TRAIN_SIZES)
+        batches = bucket_batches(model, images[:4], targets[:4], 24, dev)
+        before = trained_state(model)
+        launch_counts(zero=True)
+        for s in range(2):
+            d = dist_draws(model, batches[0], 4, 2000 + s)
+            timed.step(batches, draws=[d])
+        counts = launch_counts()
+        x = torch.randn((32, 256, 14, 14), device=dev)
+        gathered = all_gather(x, mesh.get_group("data"))
+        moved = sum(not torch.equal(v, trained_state(model)[k]) for k, v in before.items())
+        backend = dist.get_backend(mesh.get_group("data"))
+    finally:
+        dist.destroy_process_group()
+    log(f"dist: one-rank NCCL group ({backend}): 2 full-width steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in timed.times) + " ms, gradient all-reduce "
+        + ", ".join(f"{t:.2f}" for t in ar_ms) + f" ms; gather {tuple(gathered.shape)} equal "
+        f"{torch.equal(gathered[0], x)}; {moved} of {len(before)} trained tensors moved; "
+        f"launches K1 {counts['fused_stem']}, K2 {counts['roi_align']}, K5 "
+        f"{counts['roi_align_adjoint']}")
+    if backend != "nccl" or not torch.equal(gathered[0], x) or moved == 0 or not all(
+            np.isfinite(v) for lf in timed.losses for v in lf.values()):
+        raise SystemExit("dist: the one-rank NCCL group failed its checks")
+    missing = [n for n in TRAIN_PATH if counts[n] == 0]
+    if missing:
+        raise SystemExit(f"dist: the NCCL step never launched {missing}")
+    return counts, {"step_ms": [t * 1e3 for t in timed.times], "allreduce_ms": ar_ms}
+
+
+def phase_dist(dev):
+    """Phase 8: the distributed paths on two ranks sharing the card over Gloo,
+    then a one-rank NCCL group."""
+    import pickle
+
+    from seam_match_rcnn_tpu_torch.parallel.collectives import dist_backend
+
+    t_phase = time.perf_counter()
+    log("dist: 2 ranks share the one card, so the transport is Gloo (SEAM_DIST_BACKEND=gloo; "
+        "the compute stays on the card): NCCL refuses two ranks on one device")
+    try:
+        dist_backend(DIST_WORLD, torch.cuda.device_count(), "nccl")
+        raise SystemExit("dist: the backend rule let NCCL run two ranks on one card")
+    except RuntimeError as e:
+        log(f"dist: the backend rule refuses NCCL here: {e}")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    paths, report = {}, {}
+    try:
+        img_dir, ann_dir = make_synthetic_df2(str(root / "df2"), n_products=8, views_per_side=2,
+                                              image_size=(600, 800))
+        run_cli(deepf_to_coco.main, ["--image_dir", img_dir, "--annos_dir", ann_dir, "--out",
+                                     str(root / "df2" / "annots.json")])
+        torch.cuda.empty_cache()
+        ctx = torch.multiprocessing.spawn(dist_rank, args=(str(root), free_port(), dev),
+                                          nprocs=DIST_WORLD, join=False)
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SystemExit(f"dist: the ranks ran past {DIST_TIMEOUT_S} s")
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(root / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        a, b = ranks
+        checks = {
+            "DP steps bit-equal": all(a["train"][k]["digest"] == b["train"][k]["digest"]
+                                      for k in ("pallas_resident", "pallas", "f32")),
+            "head steps bit-equal": all(a["heads"][k]["digest"] == b["heads"][k]["digest"]
+                                        for k in a["heads"] if k != "all_empty_skipped"),
+            "cli ranks bit-equal": a["cli"]["digest"] == b["cli"]["digest"],
+            "cli rank 0 alone wrote": (b["cli"]["wrote"] == [] and a["cli"]["wrote"]
+                                       == ["mid.pt", "mid.pt", "epoch000.pt", "final.pt"]),
+            "cli one checkpoint set": sorted(os.listdir(root / "ckpt" / "matchrcnn"))
+            == ["epoch000.pt", "final.pt"],
+            "cli same resume file": (a["cli"]["resumed"] == b["cli"]["resumed"]
+                                     == [str(root / "ckpt" / "matchrcnn" / "mid.pt")]),
+        }
+        log("dist: " + "; ".join(f"{k}: {v}" for k, v in checks.items()))
+        if not all(checks.values()):
+            raise SystemExit(f"dist: failed {[k for k, v in checks.items() if not v]}")
+        for r, res in enumerate(ranks):
+            paths[f"dist_train_rank{r}"] = res["train"]["pallas_resident"]["launches"]
+            paths[f"dist_train_pallas_rank{r}"] = res["train"]["pallas"]["launches"]
+            paths[f"dist_train_f32_rank{r}"] = res["train"]["f32"]["launches"]
+            paths[f"dist_runner_rank{r}"] = res["runner"]["launches"]
+            paths[f"dist_score_rank{r}"] = res["score"]["launches"]
+            paths[f"dist_cli_rank{r}"] = res["cli"]["launches"]
+        paths["dist_nccl"], report["nccl"] = dist_nccl(dev, root)
+        report.update({"ranks": [{k: v for k, v in res.items()} for res in ranks]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"dist: phase 8 took {report['seconds']:.1f} s")
+    return paths, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2027,6 +2618,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_launches, cli_report = phase_cli(dev)
     paths.update(cli_launches)
+    torch.cuda.empty_cache()
+    dist_launches, dist_report = phase_dist(dev)
+    paths.update(dist_launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2045,7 +2639,7 @@ def main() -> int:
         "train_step_buckets": step_buckets, "train_peak_gib": train_peak_gb,
         "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
         "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses,
-        "seam": seam_report, "serve": serve_report, "cli": cli_report}))
+        "seam": seam_report, "serve": serve_report, "cli": cli_report, "dist": dist_report}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

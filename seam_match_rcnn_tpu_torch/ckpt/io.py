@@ -19,6 +19,12 @@ and ``final.pt``; ``save_mid`` overwrites the ``mid.pt`` slot by writing a
 so a kill during the write leaves the previous slot intact.  ``latest()``
 ranks by modification time with the name as tiebreak and never considers a
 dot-file.
+
+Under a process group rank 0 writes every file and all ranks wait at a
+barrier after the write; every rank reads on resume, and
+``resolve_auto_resume`` hands all of them rank 0's choice.  A mid file of
+W > 1 ranks holds every rank's generator state, [W, n]
+(``generator_state``), and each rank restores its own row.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..parallel.collectives import (barrier, broadcast_object, gather_objects,
+                                    is_main_process, process_count, process_index)
 
 _LEAVES = (int, float, bool, str, type(None))
 
@@ -80,23 +89,40 @@ def training_payload(model: torch.nn.Module, optimizer, epoch: int,
             "epoch": epoch, **mid}
 
 
+def generator_state(generator: torch.Generator) -> torch.Tensor:
+    """The payload entry of ``generator``: its state, or under W > 1 ranks
+    every rank's, stacked [W, n] in rank order (a collective)."""
+    if process_count() == 1:
+        return generator.get_state()
+    return torch.stack(gather_objects(generator.get_state().cpu()))
+
+
 def restore_training_state(payload: Dict[str, Any], model: torch.nn.Module, optimizer,
                            generator: Optional[torch.Generator] = None) -> None:
     """Load a ``training_payload`` into ``model`` and ``optimizer`` in place,
-    and, when the payload carries one, the generator's state."""
+    and, when the payload carries one, the generator's state (this rank's
+    row of a [W, n] entry)."""
     model.load_state_dict(payload["model_state_dict"])
     optimizer.load_state_dict(payload)
     if generator is not None and "generator" in payload:
-        generator.set_state(payload["generator"])
+        state = payload["generator"]
+        if (state.dim() == 2) != (process_count() > 1) or (
+                state.dim() == 2 and state.shape[0] != process_count()):
+            raise ValueError(f"the checkpoint's generator states ({tuple(state.shape)}) were "
+                             f"saved by another number of ranks than {process_count()}: a "
+                             "mid-epoch file resumes at the world size that wrote it")
+        generator.set_state(state[process_index()].clone() if state.dim() == 2 else state)
 
 
 def resolve_auto_resume(save_dir: str, save_tag: str) -> Optional[str]:
     """``--auto_resume``: the newest checkpoint (the mid slot included) under
-    ``save_dir/save_tag``, or None when there is nothing to resume from."""
+    ``save_dir/save_tag``, or None when there is nothing to resume from;
+    rank 0's choice on every rank."""
+    path = None
     directory = os.path.join(save_dir, save_tag)
-    if not os.path.isdir(directory):
-        return None
-    return CheckpointManager(directory).latest()
+    if is_main_process() and os.path.isdir(directory):
+        path = CheckpointManager(directory).latest()
+    return broadcast_object(path)
 
 
 class CheckpointManager:
@@ -110,10 +136,13 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     def maybe_save(self, epoch: int, payload: Dict[str, Any], final: bool = False):
+        """Rank 0 writes; every rank must call it (a barrier follows)."""
         if final or (self.save_epochs > 0 and epoch % self.save_epochs == 0):
             name = "final.pt" if final else f"epoch{epoch:03d}.pt"
-            save_checkpoint(os.path.join(self.directory, name), payload)
-            self._clear_mid()
+            if is_main_process():
+                save_checkpoint(os.path.join(self.directory, name), payload)
+                self._clear_mid()
+            barrier()
 
     def _clear_mid(self):
         """An epoch-level save supersedes the mid slot: drop it, and any
@@ -129,12 +158,15 @@ class CheckpointManager:
     def save_mid(self, payload: Dict[str, Any]) -> str:
         """Overwrite the mid-epoch slot (no reference equivalent: the
         reference saves between epochs only): the payload goes to a
-        ``.mid-<pid>-<n>.pt`` staging file, then replaces ``mid.pt``."""
+        ``.mid-<pid>-<n>.pt`` staging file, then replaces ``mid.pt``.  Rank 0
+        writes; every rank must call it (a barrier follows)."""
         self._mid_seq += 1
         tmp = os.path.join(self.directory, f".mid-{os.getpid()}-{self._mid_seq}.pt")
         dst = os.path.join(self.directory, "mid.pt")
-        torch.save(_to_cpu(payload), tmp)
-        os.replace(tmp, dst)
+        if is_main_process():
+            torch.save(_to_cpu(payload), tmp)
+            os.replace(tmp, dst)
+        barrier()
         return dst
 
     def latest(self) -> Optional[str]:

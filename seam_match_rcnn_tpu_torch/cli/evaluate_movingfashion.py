@@ -24,6 +24,7 @@ from ..config import EvalConfig, ModelConfig, serving_model_config
 from ..data.movingfashion import MovingFashionDataset
 from ..eval.movingfashion import evaluate
 from ..models.matchrcnn import init_model
+from ..parallel.collectives import initialize_distributed, is_main_process
 from ._args import add_device_flag, check_device, strtobool
 from .train_movingfashion import _eval_products
 
@@ -75,6 +76,9 @@ def load_eval_model(args, device):
 
 
 def main(argv=None):
+    # as the JAX CLI: the group is joined, the evaluation is not sharded
+    # (every rank runs all of it; rank 0 writes the artifacts)
+    initialize_distributed()  # no-op unless SEAM_MULTIHOST=1
     args = build_argparser().parse_args(argv)
     device = check_device(args.device)
     if args.synthetic:
@@ -97,7 +101,7 @@ def main(argv=None):
                    first_n_withvideo=args.first_n_withvideo,
                    ingest="device" if args.device_ingest else "host",
                    gallery_dtype="fp16" if args.fp16_gallery else "f32"),
-        out_dir=getattr(args, "out_dir", "logs_mf"),
+        out_dir=getattr(args, "out_dir", "logs_mf"), save_artifacts=is_main_process(),
     )
 
 

@@ -21,6 +21,7 @@ import os
 from ..config import EvalConfig
 from ..data.multidf2 import MultiDeepFashion2Dataset
 from ..eval.multidf2 import evaluate
+from ..parallel.collectives import initialize_distributed, is_main_process
 from ._args import add_device_flag, check_device
 from .evaluate_movingfashion import load_eval_model
 from .train_multidf2 import eval_products
@@ -54,6 +55,9 @@ def build_argparser():
 
 
 def main(argv=None):
+    # as the JAX CLI: the group is joined, the evaluation is not sharded
+    # (every rank runs all of it; rank 0 writes the artifacts)
+    initialize_distributed()  # no-op unless SEAM_MULTIHOST=1
     args = build_argparser().parse_args(argv)
     device = check_device(args.device)
     if args.synthetic:
@@ -82,7 +86,7 @@ def main(argv=None):
                    ingest="device" if args.device_ingest else "host",
                    gallery_dtype="fp16" if args.fp16_gallery else "f32",
                    tracking_threshold=0.7),
-        out_dir=getattr(args, "out_dir", "logs_mdf2"),
+        out_dir=getattr(args, "out_dir", "logs_mdf2"), save_artifacts=is_main_process(),
     )
 
 

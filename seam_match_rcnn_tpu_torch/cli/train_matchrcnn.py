@@ -19,11 +19,23 @@ horizontal flip draws, with ``seed + epoch``, and the skip consumes the
 skipped images' flip draws, so a resumed run replays the uninterrupted
 run's flips too (the JAX CLI leaves the flips unseeded).
 
-One process: the pair sampler runs with ``num_shards=1``, ``shard=0``.  The
-JAX CLI's multi-process sharding (``initialize_distributed``, one shard per
-``jax.process_index()``) waits for the port's ``parallel`` layer (ROADMAP
-Queue 1, item 9).  The prefetch thread does host work only (PIL decode and
-mask crops); every CUDA call stays on the main thread.
+Multi-process training runs under ``torchrun`` with ``SEAM_MULTIHOST=1``
+(``parallel.collectives.initialize_distributed``; ``SEAM_DIST_BACKEND=gloo``
+where ranks share a card):
+
+  SEAM_MULTIHOST=1 torchrun --nproc_per_node=8 \
+      -m seam_match_rcnn_tpu_torch.cli.train_matchrcnn --batch_size 8 ...
+
+Each rank takes its shard of the pair sampler (``num_shards`` = the ranks,
+``shard`` = its rank) and ``--batch_size`` images of it, and
+``Phase1Trainer`` steps the global batch over the ``data`` mesh: the
+gradients are synchronised, so the ranks train one model (the JAX CLI shards
+the data but steps each process alone: F-ref-6 in ROADMAP.md).  Rank r's
+sampler generator is seeded with ``seed + r * 2**32`` and its flips with
+``seed + epoch + r * 2**32`` (rank 0 draws as one process does); a mid file
+holds every rank's generator state.  Rank 0 writes the checkpoints and the
+scalars.  The prefetch thread does host work only (PIL decode and mask
+crops); every CUDA call stays on the main thread.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ import random
 
 import torch
 
-from ..ckpt.io import CheckpointManager, training_payload
+from ..ckpt.io import CheckpointManager, generator_state, training_payload
 from ..ckpt.torch_convert import import_imagenet_backbone
 from ..config import (ModelConfig, RoIHeadsConfig, RPNConfig, TrainConfig, TransformConfig,
                       serving_model_config)
@@ -43,6 +55,9 @@ from ..data.df2 import DF2PairBatchSampler, DeepFashion2Dataset
 from ..data.prefetch import prefetch
 from ..data.transforms import Compose, RandomHorizontalFlip, ToArray
 from ..models.matchrcnn import init_model
+from ..parallel.collectives import (initialize_distributed, is_main_process, process_count,
+                                    process_index)
+from ..parallel.mesh import make_mesh, replicate
 from ..train.engine import train_one_epoch_matchrcnn
 from ..train.optim import multistep_warmup_schedule, sgd
 from ..train.steps import Phase1Trainer
@@ -111,8 +126,11 @@ def build_argparser():
 
 
 def main(argv=None):
+    initialize_distributed()  # no-op unless SEAM_MULTIHOST=1
     args = build_argparser().parse_args(argv)
     device = check_device(args.device)
+    rank, world = process_index(), process_count()
+    rank_seed = rank << 32
     backend = "xla" if args.exact_roi_align else args.roi_backend
     cfg = (ModelConfig() if args.exact_roi_align else serving_model_config(
         roi_heads=RoIHeadsConfig(roi_align_backend=backend)))
@@ -167,8 +185,10 @@ def main(argv=None):
         args.train_annots, args.root_train,
         transforms=Compose([ToArray(), RandomHorizontalFlip(0.5)]),
     )
-    sampler = DF2PairBatchSampler(dataset, tcfg.batch_size, seed=tcfg.seed)
+    sampler = DF2PairBatchSampler(dataset, tcfg.batch_size, seed=tcfg.seed,
+                                  num_shards=world, shard=rank)
     steps_per_epoch = max(len(sampler), 1)
+    mesh = make_mesh(data=world, device_type=torch.device(device).type) if world > 1 else None
 
     model = init_model(cfg, video=False, device=device)
     if args.train_full_backbone:
@@ -185,11 +205,13 @@ def main(argv=None):
     # the parameters the reference's optimizer sees: those that require a
     # gradient (the stem and layer1 do not, unless --train_full_backbone)
     optimizer = sgd(model, schedule, tcfg.momentum, tcfg.weight_decay, tcfg.clip_grad_norm)
-    generator = torch.Generator(device=device).manual_seed(tcfg.seed)
+    generator = torch.Generator(device=device).manual_seed(tcfg.seed + rank_seed)
     start_ep, resume_skip = resume(args, model, optimizer, generator)
+    replicate(model, mesh)
 
-    trainer = Phase1Trainer(model, optimizer)
-    writer = ScalarWriter(os.path.join(args.log_dir, args.save_tag))
+    trainer = Phase1Trainer(model, optimizer, mesh)
+    writer = ScalarWriter(os.path.join(args.log_dir, args.save_tag) if is_main_process()
+                          else None)
     ckpts = CheckpointManager(os.path.join(args.save_dir, args.save_tag), tcfg.save_epochs)
 
     def batches(epoch, skip=0):
@@ -197,7 +219,7 @@ def main(argv=None):
         # epoch-seeded and the flips draw from `random` seeded per epoch, so
         # both replay; a skipped batch costs index math and one flip draw
         # an image (RandomHorizontalFlip draws once a call), no image load
-        random.seed(tcfg.seed + epoch)
+        random.seed(tcfg.seed + epoch + rank_seed)
         sampler.set_epoch(epoch)
         for bi, idxs in enumerate(sampler):
             if bi < skip:
@@ -213,7 +235,7 @@ def main(argv=None):
         def save_mid(step_in_epoch, epoch=epoch):
             ckpts.save_mid(training_payload(model, optimizer, epoch,
                                             step_in_epoch=step_in_epoch,
-                                            generator=generator.get_state()))
+                                            generator=generator_state(generator)))
 
         data = batches(epoch, skip)
         if args.prefetch_depth > 0:

@@ -16,15 +16,23 @@ the heads are trained in place, so it sees the current ones (the JAX CLI
 rebuilds its runner every epoch for that).  A checkpoint holds the whole
 video model, the heads' optimizer and the epoch (``ckpt/io``); a mid file
 adds ``step_in_epoch``, and a resume skips the trained batches through
-``product_batches(skip_batches=...)`` without decoding them.  One process:
-``steps_per_epoch`` counts this process's batches, and the sampler runs
-unsharded (multi-process sharding waits for ROADMAP Queue 1, item 9).
+``product_batches(skip_batches=...)`` without decoding them.
+
+Under ``torchrun`` with ``SEAM_MULTIHOST=1`` (as ``cli.train_matchrcnn``)
+each rank takes its shard of the products (``product_batches(num_shards,
+shard)``), ``steps_per_epoch`` counts one rank's batches (the JAX CLI's
+rule, train_movingfashion.py:127-129), and the head step trains over the
+rows that every rank selected (``train.seam``'s mesh step); rank 0 writes
+the checkpoints and the scalars.  Every rank runs the in-loop evaluation,
+as in the JAX CLI; rank 0 writes its artifacts.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from ..ckpt.io import CheckpointManager, training_payload
 from ..ckpt.torch_convert import load_pretrained_detector
@@ -34,6 +42,9 @@ from ..data.prefetch import prefetch
 from ..eval.movingfashion import evaluate
 from ..eval.runner import InferenceRunner
 from ..models.matchrcnn import init_model
+from ..parallel.collectives import (initialize_distributed, is_main_process, process_count,
+                                    process_index)
+from ..parallel.mesh import make_mesh, replicate
 from ..train.engine import train_one_epoch_movingfashion
 from ..train.optim import SGD, multistep_warmup_schedule
 from ..train.seam import make_seam_head_step
@@ -94,8 +105,10 @@ def build_argparser():
 
 
 def main(argv=None):
+    initialize_distributed()  # no-op unless SEAM_MULTIHOST=1
     args = build_argparser().parse_args(argv)
     device = check_device(args.device)
+    rank, world = process_index(), process_count()
     if args.synthetic:
         import tempfile
 
@@ -131,7 +144,9 @@ def main(argv=None):
     heads = model.roi_heads
     mp, ta = heads["match_predictor"], heads["temporal_aggregator"]
 
-    steps_per_epoch = max(len(train_ds) // tcfg.n_shops, 1)
+    # one rank's optimizer steps: the products are sharded over the ranks
+    steps_per_epoch = max(len(train_ds) // (tcfg.n_shops * world), 1)
+    mesh = make_mesh(data=world, device_type=torch.device(device).type) if world > 1 else None
     schedule = multistep_warmup_schedule(
         tcfg.lr, tcfg.milestones, tcfg.gamma, steps_per_epoch,
         tcfg.warmup_iters, tcfg.warmup_factor,
@@ -139,13 +154,15 @@ def main(argv=None):
     optimizer = SGD([p for h in (mp, ta) for p in h.parameters()], schedule,
                     tcfg.momentum, tcfg.weight_decay)
     start_ep, resume_skip = resume(args, model, optimizer)
+    replicate(model, mesh)
 
     head_step = make_seam_head_step(mp, ta, optimizer, frames_per_product=tcfg.frames_per_shop,
-                                    n_frames=cfg.match.n_frames)
+                                    n_frames=cfg.match.n_frames, mesh=mesh)
     runner = InferenceRunner(
         model, chunk=tcfg.infer_chunk, with_match=False, with_aggr_features=False,
         with_roi_features=True, ingest="device" if args.device_ingest else "host")
-    writer = ScalarWriter(os.path.join(args.log_dir, args.save_tag))
+    writer = ScalarWriter(os.path.join(args.log_dir, args.save_tag) if is_main_process()
+                          else None)
     ckpts = CheckpointManager(os.path.join(args.save_dir, args.save_tag), tcfg.save_epochs)
     best = [0.0, 0.0, 0.0]
 
@@ -160,7 +177,7 @@ def main(argv=None):
             runner, head_step,
             prefetch(product_batches(train_ds, tcfg.n_shops, tcfg.frames_per_shop,
                                      seed=tcfg.seed, epoch=epoch, drop_last=True,
-                                     skip_batches=skip)),
+                                     num_shards=world, shard=rank, skip_batches=skip)),
             epoch, tcfg.n_shops, tcfg.frames_per_shop,
             score_thresh=tcfg.score_thresh, print_freq=tcfg.print_freq,
             writer=writer, start_step=skip,
@@ -174,6 +191,7 @@ def main(argv=None):
                 _eval_products(test_ds, args.frames_per_shop_test, args.first_n_withvideo),
                 EvalConfig(frames_per_product=args.frames_per_shop_test,
                            first_n_withvideo=args.first_n_withvideo),
+                save_artifacts=is_main_process(),
             )
             best = [max(b, r) for b, r in zip(best, res)]
             for tag, v in zip(("acc_single", "acc_avgdesc", "acc_aggrdesc"), res):

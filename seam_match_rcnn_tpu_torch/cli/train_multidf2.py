@@ -12,7 +12,7 @@ aggregator's parameters only, so the match predictor stays bit-equal.
       --train_annots data/deepfashion2/train/annots.json \\
       --pretrained_path ckpt/matchrcnn/final.pt
 
-Checkpoints, resume and the one-process sampler are as in
+Checkpoints, resume and the multi-process run are as in
 ``cli.train_movingfashion``.
 """
 
@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from ..ckpt.io import CheckpointManager, training_payload
 from ..ckpt.torch_convert import load_pretrained_detector
@@ -29,6 +31,9 @@ from ..data.prefetch import prefetch
 from ..eval.multidf2 import evaluate
 from ..eval.runner import InferenceRunner
 from ..models.matchrcnn import init_model
+from ..parallel.collectives import (initialize_distributed, is_main_process, process_count,
+                                    process_index)
+from ..parallel.mesh import make_mesh, replicate
 from ..train.engine import train_one_epoch_multidf2
 from ..train.optim import SGD, multistep_warmup_schedule
 from ..train.seam import make_mdf2_head_step
@@ -91,8 +96,10 @@ def build_argparser():
 
 
 def main(argv=None):
+    initialize_distributed()  # no-op unless SEAM_MULTIHOST=1
     args = build_argparser().parse_args(argv)
     device = check_device(args.device)
+    rank, world = process_index(), process_count()
     if args.synthetic:
         import tempfile
 
@@ -132,19 +139,23 @@ def main(argv=None):
         load_pretrained_detector(args.pretrained_path, model, clone_match_to_aggregator=True)
     ta = model.roi_heads["temporal_aggregator"]
 
-    steps_per_epoch = max(len(train_ds) // tcfg.n_shops, 1)
+    # one rank's optimizer steps: the products are sharded over the ranks
+    steps_per_epoch = max(len(train_ds) // (tcfg.n_shops * world), 1)
+    mesh = make_mesh(data=world, device_type=torch.device(device).type) if world > 1 else None
     schedule = multistep_warmup_schedule(
         tcfg.lr, tcfg.milestones, tcfg.gamma, steps_per_epoch,
         tcfg.warmup_iters, tcfg.warmup_factor,
     )
     optimizer = SGD(ta.parameters(), schedule, tcfg.momentum, tcfg.weight_decay)
     start_ep, resume_skip = resume(args, model, optimizer)
+    replicate(model, mesh)
 
-    head_step = make_mdf2_head_step(ta, optimizer)
+    head_step = make_mdf2_head_step(ta, optimizer, mesh=mesh)
     runner = InferenceRunner(
         model, chunk=tcfg.infer_chunk, with_match=False, with_aggr_features=False,
         with_roi_features=True, ingest="device" if args.device_ingest else "host")
-    writer = ScalarWriter(os.path.join(args.log_dir, args.save_tag))
+    writer = ScalarWriter(os.path.join(args.log_dir, args.save_tag) if is_main_process()
+                          else None)
     ckpts = CheckpointManager(os.path.join(args.save_dir, args.save_tag), tcfg.save_epochs)
 
     for epoch in range(start_ep, tcfg.epochs):
@@ -158,7 +169,7 @@ def main(argv=None):
             runner, head_step,
             prefetch(product_batches(train_ds, tcfg.n_shops, tcfg.frames_per_shop,
                                      seed=tcfg.seed, epoch=epoch, drop_last=True,
-                                     skip_batches=skip)),
+                                     num_shards=world, shard=rank, skip_batches=skip)),
             epoch, tcfg.n_shops, tcfg.frames_per_shop,
             score_thresh=tcfg.score_thresh, print_freq=tcfg.print_freq,
             writer=writer, start_step=skip,
@@ -173,6 +184,7 @@ def main(argv=None):
                 EvalConfig(frames_per_product=args.frames_per_shop_test,
                            first_n_withvideo=args.first_n_withvideo,
                            tracking_threshold=0.7),
+                save_artifacts=is_main_process(),
             )
             for tag, v in zip(("acc_single", "acc_avgdesc", "acc_aggrdesc"), res):
                 writer.add_scalar(tag, v, global_step=epoch)

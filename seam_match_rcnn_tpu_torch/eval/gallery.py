@@ -7,7 +7,8 @@ every chunk is one launch of kernel K4, ``ops/cuda_kernels.pairwise_scores``,
 with no size gate; eager PyTorch has no compile cache to feed, so the JAX
 package's power-of-two shape buckets are not needed), or with
 ``dtype="fp16"`` the reference's numpy fp16 chain (``score_matrix_fp16``)
-on the host; and ``rank_of``.
+on the host; ``score_matrix_sharded``, the same matrix with the queries
+sharded over a mesh axis; and ``rank_of``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from ..ops.cuda_kernels import pairwise_scores
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import axis_group, axis_index, axis_size
 
 
 def score_matrix_fp16(street: np.ndarray, shop: np.ndarray, w: np.ndarray, b: np.ndarray,
@@ -65,6 +68,26 @@ def score_matrix(street, shop, w, b, device=None, chunk: int = 4096,
         return np.zeros((0, g), np.float32)
     outs = [pairwise_scores(street[i:i + chunk], shop, w, b) for i in range(0, q, chunk)]
     return torch.cat(outs).cpu().numpy()
+
+
+def score_matrix_sharded(street, shop, w, b, mesh, axis: str = "model",
+                         device=None) -> np.ndarray:
+    """``score_matrix``'s f32 [Q, G] with the queries sharded over the mesh
+    ``axis`` (the JAX package's layout, eval/gallery.py:103-123): the
+    queries padded to a multiple of the axis size, each rank scoring its
+    shard against the whole (small) gallery with kernel K4 on its card,
+    then one gather, so every rank returns the whole matrix.  Every rank
+    passes the same inputs."""
+    if device is None:
+        device = next((a.device for a in (street, shop, w, b) if isinstance(a, torch.Tensor)),
+                      torch.device("cuda"))
+    street, shop, w, b = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                          for a in (street, shop, w, b))
+    q, n, i = street.shape[0], axis_size(mesh, axis), axis_index(mesh, axis)
+    per = -(-q // n)
+    street = torch.cat([street, street.new_zeros((per * n - q, street.shape[1]))])
+    mine = pairwise_scores(street[i * per:(i + 1) * per].contiguous(), shop, w, b)
+    return all_gather(mine, axis_group(mesh, axis)).flatten(0, 1)[:q].cpu().numpy()
 
 
 def rank_of(scores: np.ndarray, target: int) -> np.ndarray:

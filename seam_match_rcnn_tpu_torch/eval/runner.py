@@ -8,6 +8,12 @@ per image with boxes mapped back to original coordinates and, with masks,
 each image's 28x28 probabilities pasted at its original size on the device
 (torchvision ``GeneralizedRCNNTransform.postprocess``).  ``run`` keeps
 chosen outputs on the device, in input order.
+
+With a mesh (the JAX runner's ``shard_map`` over ``data``,
+eval/runner.py:148-160 there) every chunk has the full size, the last one
+padded with blank images, and each rank runs its ``chunk / data`` images
+of it; the device outputs are gathered chunk by chunk and the host results
+once at the end, so every rank returns the whole of them.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from ..models.matchrcnn import MatchRCNN
 from ..models.transform import (batch_images, device_batch_images, host_batch_images,
                                 resize_boxes_back)
 from ..ops.masks import paste_masks
+from ..parallel.collectives import all_gather, gather_objects
+from ..parallel.mesh import axis_group, axis_index, axis_size
 
 
 def _chunk_plan(n: int, chunk: int):
@@ -45,7 +53,7 @@ class InferenceRunner:
     def __init__(self, model: MatchRCNN, chunk: int = 8, ingest: str = "device",
                  with_masks: bool = False, with_match: bool = True,
                  with_aggr_features: bool = True, with_roi_features: bool = False,
-                 paste_full_masks: bool = True):
+                 paste_full_masks: bool = True, mesh=None):
         """Runs on the model's device.  ``ingest``: "device" (raw upload,
         resize on the device; the port's default) or "host" (the JAX
         package's default: a cv2 resize before one upload a canvas bucket).
@@ -54,9 +62,16 @@ class InferenceRunner:
         training keeps them on the device, ``run``).  ``paste_full_masks``:
         with ``with_masks``, paste each detection's 28x28 probabilities at
         the ORIGINAL image size, [D, H_orig, W_orig] f32 (torchvision's
-        postprocess); False keeps them [D, 28, 28]."""
+        postprocess); False keeps them [D, 28, 28].  ``mesh``: the chunks
+        are sharded over its ``data`` axis, whose size must divide
+        ``chunk``; every rank must call ``run`` with the same images."""
         if ingest not in ("host", "device"):
             raise ValueError(f"unknown ingest {ingest!r}: 'host' or 'device'")
+        if chunk % axis_size(mesh, "data"):
+            raise ValueError(f"chunk ({chunk}) must be a multiple of the mesh 'data' axis size "
+                             f"({axis_size(mesh, 'data')}): each rank runs chunk / data images "
+                             "of every chunk")
+        self.mesh = mesh
         self.model = model
         self.chunk = chunk
         self.ingest = ingest
@@ -112,33 +127,51 @@ class InferenceRunner:
         ("roi_features",) when the runner exports them, else ()."""
         if device_keys is None:
             device_keys = ("roi_features",) if self.with_roi else ()
+        group = axis_group(self.mesh, "data")
+        ranks, rank = axis_size(self.mesh, "data"), axis_index(self.mesh, "data")
         results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
         dev: Dict[str, torch.Tensor] = {}
         for bucket in self.batches(images):
             n = bucket.pixels.shape[0]
-            for s, size in _chunk_plan(n, self.chunk):
-                e = s + size
-                out = self._forward(bucket.pixels[s:e], bucket.sizes[s:e])
+            plan = (_chunk_plan(n, self.chunk) if group is None
+                    else [(s, self.chunk) for s in range(0, n, self.chunk)])
+            for s, size in plan:
+                e = min(s + size, n)  # the chunk's images; past them, padding
+                lo, hi = s + rank * size // ranks, s + (rank + 1) * size // ranks
+                pixels, sizes = bucket.pixels[lo:min(hi, n)], bucket.sizes[lo:min(hi, n)]
+                if hi > n:
+                    pad = hi - max(lo, n)
+                    pixels = torch.cat([pixels, pixels.new_zeros((pad,) + pixels.shape[1:])])
+                    sizes = np.concatenate([sizes, np.repeat(bucket.sizes[-1:], pad, 0)])
+                out = self._forward(pixels, sizes)
                 for k in device_keys:
                     if k not in out:
                         raise ValueError(f"run: device key {k!r} is not an output of this "
                                          f"runner ({sorted(out)})")
                     v = out.pop(k)
+                    if group is not None:
+                        v = all_gather(v, group).flatten(0, 1)[:e - s]
                     if k not in dev:
                         dev[k] = torch.empty((len(images),) + v.shape[1:], dtype=v.dtype,
                                              device=v.device)
                     dev[k][torch.as_tensor(bucket.indices[s:e], device=v.device)] = v
                 masks = out.pop("masks") if self.paste_full_masks and "masks" in out else None
                 host = {k: v.cpu().numpy() for k, v in out.items()}
-                for j in range(e - s):
+                for j in range(min(hi, n) - lo):
+                    i = lo + j
                     r = {k: v[j] for k, v in host.items()}
-                    r["boxes"] = resize_boxes_back(r["boxes"], tuple(bucket.sizes[s + j]),
-                                                   tuple(bucket.orig_sizes[s + j]))
+                    r["boxes"] = resize_boxes_back(r["boxes"], tuple(bucket.sizes[i]),
+                                                   tuple(bucket.orig_sizes[i]))
                     if masks is not None:
                         # torchvision's postprocess order: the boxes back to
                         # original coordinates first, then the paste there
-                        oh, ow = map(int, bucket.orig_sizes[s + j])
+                        oh, ow = map(int, bucket.orig_sizes[i])
                         r["masks"] = paste_masks(masks[j], torch.as_tensor(
                             r["boxes"], device=masks.device), oh, ow).cpu().numpy()
-                    results[bucket.indices[s + j]] = r
+                    results[bucket.indices[i]] = r
+        if group is not None:
+            for part in gather_objects({i: r for i, r in enumerate(results) if r is not None},
+                                       group):
+                for i, r in part.items():
+                    results[i] = r
         return results, dev

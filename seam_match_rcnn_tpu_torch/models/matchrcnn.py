@@ -376,24 +376,74 @@ class MatchRCNN(nn.Module):
 
     def training_losses(self, buckets: Sequence[Dict],
                         generator: Optional[torch.Generator] = None,
-                        draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None
-                        ) -> Dict[str, torch.Tensor]:
+                        draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+                        group=None) -> Dict[str, torch.Tensor]:
         """The supervised Match R-CNN losses of one batch, given as one dict
         (images, sizes, gt; see ``train_export``) per canvas bucket, with the
         fused batch's semantics: the detector parts are summed over the
         buckets and divided by the batch-wide normalizers, and the match loss
         is computed once over every bucket's slots (its BatchNorm trains over
         all of them, and street/shop pairs cross buckets).  The samplers draw
-        from ``generator`` or take ``draws`` (one dict per bucket)."""
+        from ``generator`` or take ``draws`` (one dict per bucket).
+
+        Under a process ``group`` of W ranks the batch is the global one,
+        each rank holding its share of the images (the JAX package's
+        data-sharded step, train/steps.py:140-150):
+
+          * the normalizers (``samp_n``, ``mask_n``, the image count) are
+            summed over the ranks, so each detector loss returned is this
+            rank's share of the global one, and summing them over the ranks
+            gives the global value;
+          * the match loss is computed over every rank's slots: the other
+            ranks' RoIs are gathered detached and this rank's own stay live
+            in the graph, so it is the global batch's loss, equal on every
+            rank, and its BatchNorm trains over all valid slots.
+
+        The gradient scale follows: a backward from the sum of these losses
+        gives this rank's share of every detector gradient (the match loss
+        reaches the detector only through this rank's RoIs) and the whole
+        match predictor gradient.  Summing the gradients over the ranks and
+        averaging the match predictor's (``Phase1Trainer`` sets
+        ``SGD.distribute`` so) gives the global batch's gradient."""
         draws = draws if draws is not None else [None] * len(buckets)
         exports = [self.train_export(b["images"], b["sizes"], b["gt"], d, generator)
                    for b, d in zip(buckets, draws)]
         parts = {k: sum(e[0][k] for e in exports) for k in exports[0][0]}
         rois = torch.cat([e[1] for e in exports])
         meta = {k: torch.cat([e[2][k] for e in exports]) for k in exports[0][2]}
-        losses = self.det_losses_from_parts(parts, sum(b["images"].shape[0] for b in buckets))
+        n_images = sum(b["images"].shape[0] for b in buckets)
+        if group is not None:
+            rois, meta, parts, n_images = _global_match_batch(rois, meta, parts, n_images,
+                                                              group)
+        losses = self.det_losses_from_parts(parts, n_images)
         losses["loss_match"] = self.match_loss_from_rois(rois, meta)
         return losses
+
+
+_META_KEYS = ("pair_ids", "styles", "src", "valid")
+
+
+def _global_match_batch(rois: torch.Tensor, meta: Dict[str, torch.Tensor],
+                        parts: Dict[str, torch.Tensor], n_images: int, group):
+    """``training_losses``' global batch from this rank's share: every
+    rank's match-slot RoIs in rank order (the others' detached, this rank's
+    live), their metadata, and the detector parts with the normalizers
+    summed over the group.  Every rank must hold as many images (equal
+    shapes for the gathers)."""
+    from ..parallel.collectives import all_gather, all_reduce_sum
+
+    rank = torch.distributed.get_rank(group)
+    norms = all_reduce_sum(torch.stack([parts["samp_n"].to(torch.float32),
+                                        parts["mask_n"].to(torch.float32),
+                                        torch.tensor(float(n_images), device=rois.device)]),
+                           group)
+    parts = dict(parts, samp_n=norms[0], mask_n=norms[1])
+    shards = list(all_gather(rois, group).unbind(0))
+    shards[rank] = rois
+    packed = all_gather(torch.stack([meta[k].to(torch.int64) for k in _META_KEYS], 1), group)
+    packed = packed.reshape(-1, len(_META_KEYS))
+    meta = {k: packed[:, i].to(meta[k].dtype) for i, k in enumerate(_META_KEYS)}
+    return torch.cat(shards), meta, parts, int(norms[2])
 
 
 def _lecun_std(w: torch.Tensor) -> float:

@@ -100,14 +100,15 @@ class RetrievalResult:
 
 class SeamRetrieval:
     def __init__(self, model: MatchRCNN, cfg: Optional[EvalConfig] = None, chunk: int = 8,
-                 ingest: str = "device"):
+                 ingest: str = "device", mesh=None):
         """``ingest``: the runner's, "device" (the port's default) or "host"
-        (cv2, the JAX package's default)."""
+        (cv2, the JAX package's default).  ``mesh``: the runner's chunks
+        are sharded over its ``data`` axis (``InferenceRunner``)."""
         if not model.video:
             raise ValueError("SeamRetrieval needs the video model (MatchRCNN(video=True))")
         self.model = model
         self.cfg = cfg or EvalConfig()
-        self.runner = InferenceRunner(model, chunk=chunk, ingest=ingest)
+        self.runner = InferenceRunner(model, chunk=chunk, ingest=ingest, mesh=mesh)
         self._detect_runners: Dict[bool, InferenceRunner] = {}
         self.device = self.runner.device
         heads = model.roi_heads
@@ -145,7 +146,8 @@ class SeamRetrieval:
         if runner is None:
             runner = self._detect_runners[with_masks] = InferenceRunner(
                 self.model, chunk=self.runner.chunk, ingest=self.runner.ingest,
-                with_masks=with_masks, with_match=False, with_aggr_features=False)
+                with_masks=with_masks, with_match=False, with_aggr_features=False,
+                mesh=self.runner.mesh)
         return runner(list(images))
 
     def _best_box(self, out) -> Optional[int]:

@@ -17,6 +17,17 @@ takes no step, so that a resume's skipped batches stay aligned.
 
 A non-finite loss raises (the reference exits).
 
+Under a process group (``Phase1Trainer(mesh=...)``, the head steps'
+``mesh``) each rank iterates its own shard of the data, and the loops step
+in lockstep (``parallel.collectives.lockstep``): every rank takes as many
+steps as the shortest shard allows, so none waits in a collective the
+others never reach.  A phase-2 rank whose own selection is skipped gives no
+rows, its products are made global (``seam.global_products``), and the
+step decides the skip over the gathered rows, the same on every rank.  The
+logged losses are the global batch's, equal on every rank, at the global
+step (the optimizer's count), and ``save_fn`` fires on every rank at the
+same step (``ckpt/io`` writes from rank 0).
+
 GT boxes are scaled with their image (torchvision's
 ``GeneralizedRCNNTransform`` does the same): each image's boxes are
 multiplied by its own per-axis resize ratio.  The JAX engine copies them
@@ -34,8 +45,10 @@ import numpy as np
 import torch
 
 from ..models.transform import batch_images
+from ..parallel.collectives import all_gather, lockstep
+from ..parallel.mesh import reduce_scalars
 from ..utils.logging import MetricLogger, ScalarWriter
-from .seam import select_rows_host
+from .seam import global_products, select_rows_host
 
 
 class NonFiniteLossError(RuntimeError):
@@ -116,10 +129,11 @@ def train_one_epoch_matchrcnn(model, trainer, data: Iterable[Tuple[List[np.ndarr
     logger = MetricLogger()
     lf: Dict[str, float] = {}
     for count, (images, targets, ids) in enumerate(
-            logger.log_every(data, print_freq, f"Epoch: [{epoch}]", total=steps_per_epoch),
+            lockstep(logger.log_every(data, print_freq, f"Epoch: [{epoch}]",
+                                      total=steps_per_epoch), getattr(trainer, "group", None)),
             start=start_step):
         losses = trainer.step(bucket_batches(model, images, targets, g_max, device), generator)
-        lf = {k: float(v) for k, v in losses.items()}
+        lf = reduce_scalars(losses)
         _check_finite(lf, f"epoch {epoch} step {count} ids {ids}")
         logger.update(**lf)
         if writer is not None and count % print_freq == 0:
@@ -142,27 +156,41 @@ def _mf_batch_to_images(items: List[Dict]) -> Tuple[List[np.ndarray], List[int],
 
 def _phase2_epoch(runner, data: Iterable[List[Dict]], epoch: int, select, head_step,
                   print_freq: int, writer: Optional[ScalarWriter], start_step: int,
-                  save_every_steps: int, save_fn) -> Dict[str, float]:
+                  save_every_steps: int, save_fn, empty, n_products: int,
+                  frames_per_product: int) -> Dict[str, float]:
     """The loop both phase-2 epochs share: ``select(outs, items, tags,
-    prods)`` -> a dict of host arrays for the step, or None to skip."""
+    prods)`` -> a dict of host arrays for the step, or None to skip.  Under
+    a mesh (``head_step.group``) a rank whose own selection is None gives
+    ``empty()``, the same arrays with no rows, and its ``has_rows`` says
+    which; the step then decides the skip over the gathered rows."""
+    group = getattr(head_step, "group", None)
     logger = MetricLogger()
     lf: Dict[str, float] = {}
     count = start_step
-    for items in logger.log_every(data, print_freq, f"Epoch: [{epoch}]"):
+    for items in lockstep(logger.log_every(data, print_freq, f"Epoch: [{epoch}]"), group):
         images, tags, prods = _mf_batch_to_images(items)
         with torch.no_grad():
             outs, dev = runner.run(images, device_keys=("roi_features",))
+        roi = dev["roi_features"]
         sel = select(outs, items, tags, prods)
-        if sel is None:
+        if group is not None:
+            local = dict(sel if sel is not None else empty(),
+                         has_rows=np.asarray([sel is not None]))
+            rank, world = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+            sel = global_products(local, rank, world, n_products, frames_per_product,
+                                  lambda a: all_gather(torch.as_tensor(a, device=roi.device),
+                                                       group).cpu().numpy())
+        losses = None
+        if sel is not None:
+            batch = {k: torch.as_tensor(v, device=roi.device) for k, v in sel.items()}
+            batch["roi_src"] = roi
+            losses = head_step(batch)
+        if losses is None:
             # count consumed batches without a step, so that a mid-epoch
             # resume's skipped batches stay aligned with the sampler
             count += 1
             continue
-        roi = dev["roi_features"]
-        batch = {k: torch.as_tensor(v, device=roi.device) for k, v in sel.items()}
-        batch["roi_src"] = roi
-        losses = head_step(batch)
-        lf = {k: float(v) for k, v in losses.items()}
+        lf = reduce_scalars(losses)
         _check_finite(lf, f"epoch {epoch} step {count}")
         logger.update(**lf)
         if writer is not None and count % print_freq == 0:
@@ -191,6 +219,8 @@ def train_one_epoch_movingfashion(runner, head_step, data: Iterable[List[Dict]],
     every ``save_every_steps`` batches (no reference equivalent); the
     heads and the optimizer are the caller's, trained in place.  Returns
     the last step's losses."""
+    aggr_weight = np.float32(min(float(epoch), 1.0))
+
     def select(outs, items, tags, prods):
         sel = select_rows_host(outs, tags, prods, score_thresh, n_products,
                                frames_per_product, max_rows)
@@ -198,11 +228,18 @@ def train_one_epoch_movingfashion(runner, head_step, data: Iterable[List[Dict]],
             return None
         out = {k: getattr(sel, k) for k in ("row_img", "row_det", "valid", "types", "prod",
                                             "img_slot", "shop_row")}
-        out["aggr_weight"] = np.float32(min(float(epoch), 1.0))
+        out["aggr_weight"] = aggr_weight
         return out
 
+    def empty():
+        out = {k: np.zeros((max_rows,), np.int32) for k in ("row_img", "row_det", "types",
+                                                             "prod", "img_slot")}
+        return dict(out, valid=np.zeros((max_rows,), bool), aggr_weight=aggr_weight,
+                    shop_row=np.full((n_products,), -1, np.int32))
+
     return _phase2_epoch(runner, data, epoch, select, head_step, print_freq, writer,
-                         start_step, save_every_steps, save_fn)
+                         start_step, save_every_steps, save_fn, empty, n_products,
+                         frames_per_product)
 
 
 def _best_iou_rows_mdf2(
@@ -310,5 +347,13 @@ def train_one_epoch_multidf2(runner, head_step, data: Iterable[List[Dict]], epoc
         return _best_iou_rows_mdf2(outs, items, prods, score_thresh, n_products,
                                    frames_per_product, max_rows)
 
+    def empty():
+        return {"row_img": np.zeros((max_rows,), np.int32),
+                "row_det": np.zeros((max_rows,), np.int32),
+                "shop_row": np.full((n_products,), -1, np.int32),
+                "seq_gather": np.zeros((n_products, frames_per_product), np.int32),
+                "seq_mask": np.zeros((n_products, frames_per_product), bool)}
+
     return _phase2_epoch(runner, data, epoch, select, head_step, print_freq, writer,
-                         start_step, save_every_steps, save_fn)
+                         start_step, save_every_steps, save_fn, empty, n_products,
+                         frames_per_product)

@@ -14,6 +14,8 @@ from typing import Callable, Dict, Iterable, Sequence
 
 import torch
 
+from ..parallel.collectives import all_reduce_sum
+
 def backbone_frozen_mask(model: torch.nn.Module) -> Dict[str, bool]:
     """Parameter name -> trainable, as the reference's optimizer sees it.
     The backbone marks its frozen stem and layer1 (torchvision's
@@ -45,7 +47,9 @@ class SGD:
     """``torch.optim.SGD`` over ``params`` with the learning rate of
     ``schedule(step)`` at each step, and optional global-norm clipping of the
     raw gradients first, written the optax way (scale = max_norm / max(norm,
-    max_norm))."""
+    max_norm)).  After ``distribute(group)`` the gradients are summed over
+    the group's ranks before the clip, so every rank applies the same
+    update."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Callable[[int], float],
                  momentum: float = 0.9, weight_decay: float = 0.0,
@@ -56,12 +60,42 @@ class SGD:
         self.optimizer = torch.optim.SGD(self.params, lr=schedule(0), momentum=momentum,
                                          dampening=0.0, weight_decay=weight_decay)
         self.count = 0
+        self.group, self._mean = None, None
+
+    def distribute(self, group, mean: Iterable[torch.nn.Parameter] = ()) -> "SGD":
+        """Synchronise the gradients over ``group`` at each ``step``, in one
+        flattened all-reduce: summed, but averaged for the parameters in
+        ``mean`` (those every rank computes the whole gradient of, from a
+        loss replicated on every rank).  A parameter that has a gradient on
+        some rank gets the synchronised one on all; one that has none on
+        any rank keeps none, so the update skips it as on one process."""
+        ids = {id(p) for p in mean}
+        self.group, self._mean = group, [id(p) in ids for p in self.params]
+        return self
+
+    def _sync_gradients(self) -> None:
+        ref = next(p for p in self.params)
+        parts = [p.grad.reshape(-1).to(torch.float32) if p.grad is not None
+                 else torch.zeros(p.numel(), dtype=torch.float32, device=ref.device)
+                 for p in self.params]
+        parts.append(torch.tensor([float(p.grad is not None) for p in self.params],
+                                  device=ref.device))
+        flat = all_reduce_sum(torch.cat(parts), self.group)
+        world = torch.distributed.get_world_size(self.group)
+        has = flat[-len(self.params):].tolist()
+        offset = 0
+        for p, mean, h in zip(self.params, self._mean, has):
+            g = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+            p.grad = ((g / world) if mean else g).to(p.dtype) if h else None
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
     @torch.no_grad()
     def step(self) -> None:
+        if self.group is not None:
+            self._sync_gradients()
         if self.clip_grad_norm:
             grads = [p.grad for p in self.params if p.grad is not None]
             norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))

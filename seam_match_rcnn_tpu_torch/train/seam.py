@@ -25,6 +25,20 @@ selection reads detached logits.  Scatters that JAX writes with
 ``mode="drop"`` (an invalid group's index k_rows) go to a spare row k_rows
 of a padded target, which is then cut off, so row 0 is never set by an
 invalid group.
+
+With a mesh, both steps take the global row set over its ``data`` axis, as
+the JAX step on data-sharded rows does (tests/test_seam_step.py:150-196):
+each rank holds its own rows (``row_img``/``row_det`` into its own
+``roi_src``, and the row-indexed ``valid``, ``types``, ``prod``,
+``img_slot``) and the product tables of the global batch (``shop_row``,
+``seq_gather``, indices into the global rows, rank r's rows following rank
+r-1's); ``global_products`` turns rank-local product batches into that
+form.  The step gathers every rank's rows and RoI features without grad
+(the detector is frozen), applies the skip rule of engine.py:153 to the
+gathered rows, so that every rank skips or none does, and runs the update
+once over the whole row set on every rank: the heads' compute is
+replicated, and the optimizer averages the (equal) gradients over the
+ranks, which keeps them bit-equal.
 """
 
 from __future__ import annotations
@@ -37,6 +51,8 @@ import torch
 
 from ..losses.match import aggregation_loss, group_argmax, masked_pair_ce
 from ..models.match_head import MatchPredictor, TemporalAggregator
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import axis_group
 from .optim import SGD
 
 
@@ -135,6 +151,52 @@ def select_rows_host(
     )
 
 
+def takes_step(types) -> bool:
+    """engine.py:153's rule over the valid rows' types (0 street, 1 shop):
+    a step needs 2 rows, a street one and a shop one."""
+    return len(types) >= 2 and bool((types == 0).any()) and bool((types == 1).any())
+
+
+def global_products(batch: Dict[str, np.ndarray], rank: int, world: int, n_products: int,
+                    frames_per_product: int, gather) -> Dict[str, np.ndarray]:
+    """A rank-local product batch (``select_rows_host``'s or the MultiDF2
+    selection's arrays; products 0..P-1 and rows 0..K-1 of this rank) ->
+    the mesh steps' form: products and street slots offset by rank x P and
+    rank x P x T, and the product tables (``shop_row``, ``seq_gather``,
+    ``seq_mask``) of every rank, concatenated, with their rows offset by
+    rank x K.  ``gather`` maps an int64 array to every rank's, stacked."""
+    k, p, t = len(batch["row_img"]), n_products, frames_per_product
+    out = dict(batch)
+    for key, step in (("prod", p), ("img_slot", p * t)):
+        if key in out:
+            out[key] = out[key] + rank * step
+    shop = np.where(batch["shop_row"] >= 0, batch["shop_row"] + rank * k, -1)
+    tables = [shop[:, None]]
+    if "seq_gather" in batch:
+        tables += [batch["seq_gather"] + rank * k, batch["seq_mask"]]
+    packed = gather(np.concatenate(tables, 1).astype(np.int64)).reshape(world * p, -1)
+    out["shop_row"] = packed[:, 0].astype(np.int32)
+    if "seq_gather" in batch:
+        out["seq_gather"] = packed[:, 1:1 + t].astype(np.int32)
+        out["seq_mask"] = packed[:, 1 + t:].astype(bool)
+    return out
+
+
+# the per-rank entries of a mesh step's batch: its rows' and whether its
+# own selection passed the skip rule
+_RANK_KEYS = ("valid", "types", "prod", "img_slot", "has_rows")
+
+
+def _global_rows(roi: torch.Tensor, batch: Dict[str, torch.Tensor], group):
+    """Every rank's RoI rows and per-rank entries, in rank order."""
+    roi = all_gather(roi, group).flatten(0, 1)
+    out = dict(batch)
+    for key in _RANK_KEYS:
+        if key in batch:
+            out[key] = all_gather(batch[key], group).flatten(0, 1)
+    return roi, out
+
+
 def _group_winners(score: torch.Tensor, grp: torch.Tensor, ok: torch.Tensor, num_groups: int):
     """Per group, its argmax row among the ok rows (the first on ties) and
     whether it has one: (winner [G], 0 where none; winner_valid [G];
@@ -213,7 +275,7 @@ def _aggregate_and_score(ta: TemporalAggregator, roi: torch.Tensor, bn_valid: to
 def make_seam_head_step(match_predictor: MatchPredictor,
                         temporal_aggregator: TemporalAggregator, optimizer: SGD,
                         frames_per_product: int, n_frames: int = 3,
-                        match_threshold: float = -10.0):
+                        match_threshold: float = -10.0, mesh=None):
     """The MovingFashion head step (engine.py:120-198): MatchLossWeak plus
     ``aggr_weight`` x the aggregation loss, one update of ``optimizer``
     (over both heads' parameters).
@@ -224,12 +286,19 @@ def make_seam_head_step(match_predictor: MatchPredictor,
     detached match_loss, aggregation_loss and their weighted sum, loss.  At
     aggr_weight 0 (epoch 0) the aggregator still runs: its BatchNorm
     statistics move, and its gradients are zeros, on which weight decay
-    acts, as in the JAX step."""
+    acts, as in the JAX step.  With ``mesh`` the step is the global row
+    set's (see the module's docstring) and returns None where the gathered
+    rows fail the skip rule."""
     mp, ta = match_predictor, temporal_aggregator
+    group = _distribute(optimizer, mesh)
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def step(batch: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
         optimizer.zero_grad()
         roi = _gather_rois(batch)
+        if group is not None:
+            roi, batch = _global_rows(roi, batch, group)
+            if not takes_step(batch["types"][batch["valid"]]):
+                return None
         valid, types, shop_row = batch["valid"], batch["types"], batch["shop_row"]
         shop_ok = shop_row >= 0
         shop_idx = shop_row.clamp(min=0).to(torch.int64)
@@ -254,11 +323,21 @@ def make_seam_head_step(match_predictor: MatchPredictor,
         return {"match_loss": match_loss.detach(), "aggregation_loss": agg_l.detach(),
                 "loss": total.detach()}
 
-    step.optimizer = optimizer
+    step.optimizer, step.group = optimizer, group
     return step
 
 
-def make_mdf2_head_step(temporal_aggregator: TemporalAggregator, optimizer: SGD):
+def _distribute(optimizer: SGD, mesh):
+    """The data group of ``mesh`` (None without one), over which
+    ``optimizer`` then averages the gradients: every rank computes the
+    whole of them from the same gathered rows."""
+    group = axis_group(mesh, "data")
+    if group is not None:
+        optimizer.distribute(group, mean=optimizer.params)
+    return group
+
+
+def make_mdf2_head_step(temporal_aggregator: TemporalAggregator, optimizer: SGD, mesh=None):
     """The MultiDF2 head step (engine.py:202-340): the aggregation loss
     (AggregationMatchLossDF2) over host-given sequences, one update of
     ``optimizer``, which must hold the aggregator's parameters only: the
@@ -268,16 +347,26 @@ def make_mdf2_head_step(temporal_aggregator: TemporalAggregator, optimizer: SGD)
     ``step(batch)``: roi_src, row_img, row_det as for the MovingFashion
     step, seq_gather and seq_mask [P, T] (rows grouped per product),
     shop_row [P].  A product's sequence counts with >= 3 street views
-    (match_head.py:406).  Returns the detached aggregation_loss and loss."""
+    (match_head.py:406).  Returns the detached aggregation_loss and loss.
+    With ``mesh`` the step is the global row set's, and the batch also
+    holds ``has_rows`` [1], whether this rank's own selection (which is
+    None below 2 rows, engine.py:295) gave rows; a rank without gives
+    none, so the gathered rows number 2 or more exactly where some rank has
+    them, and the step returns None where none has."""
     ta = temporal_aggregator
     own = {id(q) for q in ta.parameters()}
     if any(id(q) not in own for q in optimizer.params):
         raise ValueError("make_mdf2_head_step: the optimizer must hold the temporal "
                          "aggregator's parameters only (the match predictor is frozen)")
+    group = _distribute(optimizer, mesh)
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def step(batch: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
         optimizer.zero_grad()
         roi = _gather_rois(batch)
+        if group is not None:
+            roi, batch = _global_rows(roi, batch, group)
+            if not bool(batch["has_rows"].any()):
+                return None
         shop_row, seq_gather, seq_mask = batch["shop_row"], batch["seq_gather"], batch["seq_mask"]
         shop_ok = shop_row >= 0
         shop_idx = shop_row.clamp(min=0).to(torch.int64)
@@ -295,7 +384,7 @@ def make_mdf2_head_step(temporal_aggregator: TemporalAggregator, optimizer: SGD)
         optimizer.step()
         return {"aggregation_loss": loss.detach(), "loss": loss.detach()}
 
-    step.optimizer = optimizer
+    step.optimizer, step.group = optimizer, group
     return step
 
 

@@ -31,3 +31,20 @@ def test_port_imports_without_jax_or_cv2():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20  # every module of the package was imported
+
+
+def test_parallel_layer_imports_without_jax_or_cv2():
+    """The distributed layer and the modules built on it import with jax, cv2
+    and the JAX package blocked, and joining no process group on import."""
+    script = _SCRIPT.replace('for name in names + ["chip_smoke"]:', 'for name in ('
+                             '"seam_match_rcnn_tpu_torch.parallel.collectives", '
+                             '"seam_match_rcnn_tpu_torch.parallel.mesh", '
+                             '"seam_match_rcnn_tpu_torch.train.steps", '
+                             '"seam_match_rcnn_tpu_torch.cli.train_matchrcnn"):')
+    assert script != _SCRIPT
+    script += ("import torch.distributed as dist\n"
+               "assert not dist.is_initialized()\n"
+               "assert 'seam_match_rcnn_tpu_torch.parallel.mesh' in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
