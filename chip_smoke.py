@@ -89,16 +89,39 @@ Phases, one line each:
                1000x1000 over model=2, and cli/train_matchrcnn under
                torchrun's environment (stopped after a mid save, resumed
                with --auto_resume: rank 0 alone writes, the ranks agree on
-               the file and end bit-equal); then a one-rank NCCL group
-               running two phase-1 steps and a gather on the card.  A rank
-               that fails, or runs past 600 s, fails the phase.
-For phases 3 to 8 the launch counters are zeroed right before each path
+               the file and end bit-equal), then cli/train_movingfashion
+               and cli/train_multidf2 the same way from its final.pt (8
+               products, 2 a batch a rank: each rank takes its 2 batches,
+               rank 0 alone writes the checkpoints and the in-loop
+               evaluation's artifacts, the ranks end bit-equal); then a
+               one-rank NCCL group running two phase-1 steps and a gather
+               on the card.  A rank that fails, or runs past 600 s, fails
+               the phase;
+  9. ablate  - the phase-1 ablation paths at full width on phase 4's batch
+               of 8 at 800x1344: remat_backbone off and on (1 + 3 steps
+               each under deterministic algorithms, median step, peak
+               memory, the updates bit-equal); roi_adjoint_backend "xla"
+               against K5 (a captured cotangent within K5's tolerance of
+               the f32 plain adjoint, the first step's update within 1e-3,
+               step times, the adjoint alone with and without
+               deterministic algorithms, one step with the K6 forward);
+               the grad/accum/apply triple (at weight 1 bit-equal to
+               Phase1Trainer.step, then a mixed batch of 4 + 4 beside it);
+               each stage of profile_losses (forward and step ms, "full"
+               equal to the step's loss) and the optimizer alone; then
+               inference(gt=) on the serving model at batch 11 (the GT rows
+               first, the detections as without gt), one retrieve request
+               traced with utils.profiling.trace into
+               build/chip_smoke_trace/ (the trace names the annotation and
+               the CUDA kernels of K1-K4), and visualize_matches on the
+               detector's CUDA outputs where matplotlib is importable.
+For phases 3 to 9 the launch counters are zeroed right before each path
 and read right after (in phase 8 in each rank's process, reported per
 rank); every kernel of the path must have run (on the seam
 paths K3, K4 and K5 must not; on the serve paths K5-K7 must not, nor K3
 and K4 on a detect path; on the phase-1 CLI paths K3, K4 and K7 must not,
 on the phase-2 training epochs K3-K7 must not, and the CLIs' evaluations
-run K1-K4 and never K5-K7).  Then the card's name
+run K1-K4 and never K5-K7; K5 must not run under the "xla" adjoint).  Then the card's name
 and power limit, a JSON line of per-kernel results, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without that
 line.  There is no CPU fallback.
@@ -158,13 +181,14 @@ from seam_match_rcnn_tpu_torch.ops.roi_align import (SPATIAL_SCALES, multilevel_
                                                       multilevel_roi_align_adjoint)
 from seam_match_rcnn_tpu_torch.serving import (Gallery, RetrievalResult, SeamRetrieval,
                                                 decode_video_frames, load_image_frames)
-from seam_match_rcnn_tpu_torch.train.engine import (train_one_epoch_matchrcnn,
+from seam_match_rcnn_tpu_torch.train.engine import (bucket_batches, train_one_epoch_matchrcnn,
                                                      train_one_epoch_movingfashion,
                                                      train_one_epoch_multidf2)
 from seam_match_rcnn_tpu_torch.train.optim import SGD, multistep_warmup_schedule, sgd
 from seam_match_rcnn_tpu_torch.train.seam import (compare_head_updates, make_mdf2_head_step,
                                                   make_seam_head_step, select_rows_host)
-from seam_match_rcnn_tpu_torch.train.steps import Phase1Trainer
+from seam_match_rcnn_tpu_torch.train.steps import Phase1Trainer, make_phase1_grad_apply
+from seam_match_rcnn_tpu_torch.utils import profiling, visualize
 
 KERNELS = {
     "fused_stem": ("seam_match_rcnn_tpu_torch/csrc/stem.cu",
@@ -910,14 +934,16 @@ class TimedTrainer:
         return out
 
 
-def train_model(dev, roi_align_backend, mesh=None, compute_dtype=None):
+def train_model(dev, roi_align_backend, mesh=None, compute_dtype=None,
+                roi_adjoint_backend="pallas", remat=False):
     """The full-width phase-1 model (seeded random weights, the stem and
     layer1 frozen; bf16 unless ``compute_dtype`` says otherwise) and its
     timed trainer with the phase-1 optimizer (over ``mesh``'s data axis when
     given)."""
     tc = TrainConfig()
-    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend=roi_align_backend),
-                               freeze_backbone_stages=True)
+    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend=roi_align_backend,
+                                                        roi_adjoint_backend=roi_adjoint_backend),
+                               freeze_backbone_stages=True, remat_backbone=remat)
     if compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     model = init_model(cfg, video=False, seed=0, device=dev)
@@ -1698,12 +1724,13 @@ class CliRecorder:
             stack.enter_context(patched(mod, "evaluate", evaluate))
 
 
-def mf_fixture(root: Path):
-    """Two synthetic MovingFashion fixtures under one root: 16 training and 4
-    test products, 12 frames of 360x640 each, other seeds so that the test
-    products are not the training ones; returns the two JSON paths."""
+def mf_fixture(root: Path, n_train: int = 16, n_test: int = 4):
+    """Two synthetic MovingFashion fixtures under one root: ``n_train``
+    training and ``n_test`` test products, 12 frames of 360x640 each, other
+    seeds so that the test products are not the training ones; returns the
+    two JSON paths (``train.json``, ``test.json``)."""
     out = []
-    for name, n, seed in (("train", 16, 0), ("test", 4, 1)):
+    for name, n, seed in (("train", n_train, 0), ("test", n_test, 1)):
         data = json.loads(Path(make_synthetic_movingfashion(
             str(root / name), n_products=n, n_frames=12, frame_size=(360, 640),
             seed=seed)).read_text())
@@ -2433,6 +2460,123 @@ def dist_cli(rank, dev, root: Path, port: int):
                                            model.state_dict().items()}))}
 
 
+DIST_PHASE2 = {  # kind: (CLI module name, save tag, epoch loop, head-step maker, artifacts)
+    "mf": ("train_movingfashion", "seam_mf", "train_one_epoch_movingfashion",
+           "make_seam_head_step", "logs_mf/metrics.json"),
+    "mdf2": ("train_multidf2", "seam_mdf2", "train_one_epoch_multidf2", "make_mdf2_head_step",
+             "logs_mdf2/metrics.json"),
+}
+
+
+def dist_cli_phase2(rank, dev, root: Path, kind: str):
+    """A phase-2 CLI under torchrun's environment (set by ``dist_cli``, whose
+    process group it joins) at full width on phase 8's fixtures, 4 products a
+    rank in product batches of 2 (2 steps a rank), warm-started from the
+    two-rank phase-1 run's final.pt: stopped after its first mid save (step
+    1), rerun with ``--auto_resume``.  Returns the files this rank wrote,
+    the file each rank resumed from, the product batches each run's epoch
+    loop took, whether this rank's working directory holds the in-loop
+    evaluation's artifacts, the head steps' and their gradient all-reduce's
+    ms, launches and a digest of the trained model and momentum."""
+    import importlib
+
+    name, tag, epoch_name, head_name, artifacts = DIST_PHASE2[kind]
+    cli = importlib.import_module(f"seam_match_rcnn_tpu_torch.cli.{name}")
+    work = root / f"{kind}_rank{rank}"
+    work.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(work)  # the in-loop evaluation writes its artifacts to the cwd
+    wrote, resumed, batches, models, optimizers, head_ms, ar_ms = [], [], [], [], [], [], []
+    data = (["--root", str(root / "mf"), "--train_annots", str(root / "mf" / "train.json"),
+             "--test_annots", str(root / "mf" / "test.json")] if kind == "mf" else
+            ["--root_train", str(root / "mdf2" / "image"), "--train_annots",
+             str(root / "mdf2" / "annots.json"), "--root_test", str(root / "mdf2" / "image"),
+             "--test_annots", str(root / "mdf2" / "annots.json")])
+    argv = data + ["--n_shops", "2", "--epochs", "1", "--eval_freq", "1", "--save_steps", "1",
+                   "--pretrained_path", str(root / "ckpt" / "matchrcnn" / "final.pt"),
+                   "--save_dir", str(root / "ckpt"), "--log_dir", str(root / "runs"),
+                   "--device", dev.type]
+
+    def counted(orig):
+        def epoch(runner, head_step, data, *a, **kw):
+            def taken(items_iter):
+                batches.append(0)
+                for items in items_iter:
+                    batches[-1] += 1
+                    yield items
+
+            def timed_head(batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = head_step(batch)
+                torch.cuda.synchronize()
+                head_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            timed_head.group, timed_head.optimizer = head_step.group, head_step.optimizer
+            return orig(runner, timed_head, taken(data), *a, **kw)
+        return epoch
+
+    def recorded_sgd(orig):
+        class Recorded(orig):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                optimizers.append(self)
+
+            def distribute(self, *a, **kw):
+                out = super().distribute(*a, **kw)
+                timed_sync(self, ar_ms)
+                return out
+        return Recorded
+
+    def stop_after(orig):
+        def save_mid(self, payload):
+            orig(self, payload)
+            raise StopRun()
+        return save_mid
+
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(os, "replace", lambda orig: lambda src, dst: (
+                wrote.append(os.path.basename(dst)), orig(src, dst))[1]))
+            stack.enter_context(patched(ckpt_io, "resolve_auto_resume", lambda orig: lambda *a: (
+                resumed.append(orig(*a)), resumed[-1])[1]))
+            stack.enter_context(patched(cli, epoch_name, counted))
+            stack.enter_context(patched(cli, "SGD", recorded_sgd))
+            stack.enter_context(patched(cli, "init_model", lambda orig: lambda *a, **kw: (
+                models.append(orig(*a, **kw)), models[-1])[1]))
+            launch_counts(zero=True)
+            t0 = time.perf_counter()
+            with patched(ckpt_io.CheckpointManager, "save_mid", stop_after):
+                try:
+                    cli.main(argv)
+                except StopRun:
+                    pass
+            after_stop = os.path.exists(artifacts)
+            dist.barrier()  # every rank has stopped before the rerun replaces the mid file
+            cli.main(argv + ["--auto_resume"])
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            has_artifacts = (after_stop, os.path.exists(artifacts))
+    finally:
+        os.chdir(cwd)
+    model, opt = models[-1], optimizers[-1]
+    log(f"dist rank {rank}: {name} under torchrun's environment (2 ranks, 2 products x 11 "
+        f"images a batch a rank) in {seconds:.1f} s with the stop and the resume: batches "
+        f"taken {batches}, head steps " + ", ".join(f"{t:.1f}" for t in head_ms) + " ms, their "
+        "gradient all-reduce " + ", ".join(f"{t:.1f}" for t in ar_ms) + f" ms; {opt.count} "
+        f"steps; wrote {wrote}; resumed from {resumed}; evaluation artifacts {has_artifacts}; "
+        f"launches K1 {counts['fused_stem']}, K2 {counts['roi_align']}, K3 "
+        f"{counts['nlb_aggregate']}, K4 {counts['pairwise_scores']}")
+    check_launches(f"dist_cli_{kind} rank {rank}", counts, CLI_EVAL_PATH, SEAM_STEP_NEVER)
+    return {"wrote": wrote, "resumed": resumed, "batches": batches, "count": opt.count,
+            "artifacts": has_artifacts, "head_step_ms": head_ms, "allreduce_ms": ar_ms,
+            "seconds": seconds, "launches": counts, "save_tag": tag,
+            "digest": state_digest(dict(trained_state(model, opt),
+                                        **{f"all:{k}": v for k, v in
+                                           model.state_dict().items()}))}
+
+
 def dist_rank(rank, root, port, dev):
     """One rank of phase 8 (a process of its own, on the parent's card)."""
     import pickle
@@ -2455,6 +2599,10 @@ def dist_rank(rank, root, port, dev):
         out["score"] = dist_score(rank, dev)
         dist.destroy_process_group()
         out["cli"] = dist_cli(rank, dev, root, port)
+        torch.cuda.empty_cache()
+        for kind in DIST_PHASE2:
+            out[f"cli_{kind}"] = dist_cli_phase2(rank, dev, root, kind)
+            torch.cuda.empty_cache()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -2536,6 +2684,13 @@ def phase_dist(dev):
                                               image_size=(600, 800))
         run_cli(deepf_to_coco.main, ["--image_dir", img_dir, "--annos_dir", ann_dir, "--out",
                                      str(root / "df2" / "annots.json")])
+        # the phase-2 CLIs' fixtures: 8 MovingFashion products (2 test ones),
+        # 8 MultiDF2 products of 3 street and 3 shop views
+        mf_fixture(root / "mf", n_train=8, n_test=2)
+        img_dir, ann_dir = make_synthetic_df2(str(root / "mdf2"), n_products=8,
+                                              views_per_side=3, image_size=(600, 800))
+        run_cli(deepf_to_coco.main, ["--image_dir", img_dir, "--annos_dir", ann_dir, "--out",
+                                     str(root / "mdf2" / "annots.json")])
         torch.cuda.empty_cache()
         ctx = torch.multiprocessing.spawn(dist_rank, args=(str(root), free_port(), dev),
                                           nprocs=DIST_WORLD, join=False)
@@ -2563,6 +2718,24 @@ def phase_dist(dev):
             "cli same resume file": (a["cli"]["resumed"] == b["cli"]["resumed"]
                                      == [str(root / "ckpt" / "matchrcnn" / "mid.pt")]),
         }
+        for kind in DIST_PHASE2:
+            x, y = a[f"cli_{kind}"], b[f"cli_{kind}"]
+            ckpt = root / "ckpt" / x["save_tag"]
+            checks.update({
+                f"cli_{kind} ranks bit-equal": x["digest"] == y["digest"],
+                f"cli_{kind} rank 0 alone wrote": (
+                    y["wrote"] == [] and x["wrote"] == ["mid.pt", "mid.pt", "epoch000.pt",
+                                                        "final.pt"]),
+                f"cli_{kind} one checkpoint set": sorted(os.listdir(ckpt))
+                == ["epoch000.pt", "final.pt"],
+                f"cli_{kind} same resume file": x["resumed"] == y["resumed"]
+                == [str(ckpt / "mid.pt")],
+                # steps_per_epoch = 8 products // (2 a batch x 2 ranks)
+                f"cli_{kind} steps_per_epoch / W batches a rank": x["batches"] == y["batches"]
+                == [1, 1] and x["count"] == y["count"] == 2,
+                f"cli_{kind} rank 0 alone wrote the evaluation's artifacts": (
+                    x["artifacts"] == (False, True) and y["artifacts"] == (False, False)),
+            })
         log("dist: " + "; ".join(f"{k}: {v}" for k, v in checks.items()))
         if not all(checks.values()):
             raise SystemExit(f"dist: failed {[k for k, v in checks.items() if not v]}")
@@ -2573,12 +2746,456 @@ def phase_dist(dev):
             paths[f"dist_runner_rank{r}"] = res["runner"]["launches"]
             paths[f"dist_score_rank{r}"] = res["score"]["launches"]
             paths[f"dist_cli_rank{r}"] = res["cli"]["launches"]
+            for kind in DIST_PHASE2:
+                paths[f"dist_cli_{kind}_rank{r}"] = res[f"cli_{kind}"]["launches"]
         paths["dist_nccl"], report["nccl"] = dist_nccl(dev, root)
         report.update({"ranks": [{k: v for k, v in res.items()} for res in ranks]})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     report["seconds"] = time.perf_counter() - t_phase
     log(f"dist: phase 8 took {report['seconds']:.1f} s")
+    return paths, report
+
+
+# ---- phase 9: the phase-1 ablation paths, inference with GT, the trace ---------------
+
+ABLATE_SINGLE = [(600, 800), (720, 1280), (480, 640), (768, 1024), (540, 960), (500, 900),
+                 (640, 960), (450, 800)]  # one landscape bucket
+# 4 landscape and 4 portrait images; street image i and shop image i + 4 share
+# an orientation, so each bucket holds street/shop pairs
+ABLATE_MIXED = [(600, 800), (720, 1280), (800, 600), (1280, 720), (480, 640), (768, 1024),
+                (640, 480), (1024, 768)]
+ABLATE_STAGES = ("backbone", "rpn", "sample", "boxbranch", "mask", "full")
+NO_K5_PATH = ("roi_align_adjoint",)
+P1_NO_K6 = P1_CLI_NEVER + ("roi_align_patch",)  # phase 1 on K2: no K3, K4, K6, K7
+INFER_GT_NEVER = ("nlb_aggregate", "pairwise_scores", "roi_align_adjoint", "roi_align_patch",
+                  "roi_align_patch_int8")
+
+
+def synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def update_of(before, after):
+    """after - before of each trainable tensor of ``trained_state``."""
+    return {k: after[k].double() - before[k].double() for k in before
+            if not k.startswith("momentum")}
+
+
+def stage_rows(model, optimizer, batches, draws, stages, reps=3):
+    """Per stage of ``MatchRCNN.profile_losses``: the forward alone (no
+    graph) and a step (forward, backward, update) in ms, medians of
+    ``reps`` after one warm-up each, on a synchronised host clock; "opt" is
+    ``optimizer.step`` alone on gradients of ones.  Every stage starts from
+    the weights and optimizer state of the call, as the JAX package's
+    tools/profile_train.py times each stage from the same state."""
+    model_state = copy.deepcopy(model.state_dict())
+    opt_state = copy.deepcopy(optimizer.state_dict())
+
+    def restore():
+        model.load_state_dict(model_state)
+        optimizer.load_state_dict(copy.deepcopy(opt_state))
+        optimizer.zero_grad()
+
+    rows = []
+    for stage in stages:
+        row = {"stage": stage}
+        restore()
+        if stage == "opt":
+            for p in optimizer.params:
+                p.grad = torch.ones_like(p)
+            times = [synced_ms(optimizer.step)[0] for _ in range(reps + 1)][1:]
+            row["step_ms"] = statistics.median(times)
+            rows.append(row)
+            continue
+
+        def fwd():
+            with torch.no_grad():
+                return model.profile_losses(batches, stage, draws=draws)
+
+        def step():
+            optimizer.zero_grad()
+            loss = model.profile_losses(batches, stage, draws=draws)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        times = [synced_ms(fwd) for _ in range(reps + 1)][1:]
+        row["fwd_ms"] = statistics.median(t for t, _ in times)
+        row["loss"] = float(times[-1][1])
+        times = [synced_ms(step)[0] for _ in range(reps + 1)][1:]
+        row["step_ms"] = statistics.median(times)
+        if not np.isfinite(row["loss"]):
+            raise SystemExit(f"ablate: stage {stage}: loss {row['loss']}")
+        rows.append(row)
+    restore()
+    return rows
+
+
+def ablate_remat(dev, paths, report):
+    """remat off vs on: 1 + 3 steps each of the same single-orientation batch
+    and draws under deterministic algorithms, from the same weights."""
+    runs = {}
+    for remat in (False, True):
+        model, timed = train_model(dev, "pallas_resident", remat=remat)
+        batches = bucket_batches(model, *train_batch(np.random.RandomState(21), ABLATE_SINGLE),
+                                 24, dev)
+        draws = [dist_draws(model, batches[0], 8, 900 + s) for s in range(4)]
+        timed.step(batches, draws=[draws[0]])
+        torch.cuda.reset_peak_memory_stats(dev)
+        launch_counts(zero=True)
+        for d in draws[1:]:
+            timed.step(batches, draws=[d])
+        counts = launch_counts()
+        runs[remat] = {"step_ms": [t * 1e3 for t in timed.times[1:]],
+                       "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                       "losses": timed.losses, "state": trained_state(model, timed.optimizer),
+                       "launches": counts}
+        del model, timed, batches
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    paths["ablate_remat"] = on["launches"]
+    check_launches("ablate_remat", on["launches"], TRAIN_PATH, P1_NO_K6)
+    diff = [k for k in off["state"] if not torch.equal(off["state"][k], on["state"][k])]
+    worst = max((float((on["state"][k].double() - off["state"][k].double()).abs().max())
+                 for k in diff), default=0.0)
+    log(f"ablate: remat_backbone off / on, batch 8 at 800x1344, deterministic algorithms: "
+        f"median step {statistics.median(off['step_ms']):.1f} / "
+        f"{statistics.median(on['step_ms']):.1f} ms (each "
+        + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in zip(off["step_ms"], on["step_ms"]))
+        + f"); peak {off['peak_gib']:.2f} / {on['peak_gib']:.2f} GiB; after 4 steps "
+        f"{len(diff)} of {len(off['state'])} tensors differ (max {worst:.3g}); losses "
+        f"{off['losses'][-1]['loss']:.6f} / {on['losses'][-1]['loss']:.6f}; launches "
+        f"{on['launches']}")
+    if diff:
+        raise SystemExit(f"ablate: the remat steps are not bit-equal to the steps without: "
+                         f"{diff[:5]}")
+    report["remat"] = {k: {"step_ms": r["step_ms"], "peak_gib": r["peak_gib"],
+                           "loss_last": r["losses"][-1]["loss"]}
+                       for k, r in (("off", off), ("on", on))}
+    report["remat"]["bit_equal"] = True
+
+
+def ablate_adjoint(dev, paths, report):
+    """``roi_adjoint_backend="xla"`` against K5: one captured cotangent, the
+    first step's update from the same weights and draws, step times, and
+    one step with the K6 forward under "xla"."""
+    out, captured, states = {}, [], {}
+    adjoint = cuda_roi_align.roi_align_adjoint
+
+    def record(grad, rois, level_shapes, dtype, sampling_ratio=2,
+               spatial_scales=SPATIAL_SCALES):
+        if not captured:
+            captured.append((grad.clone(), rois.clone(), [tuple(x) for x in level_shapes]))
+        return adjoint(grad, rois, level_shapes, dtype, sampling_ratio, spatial_scales)
+
+    record.launches = 0  # the wrapper counts under its module name while patched
+    for backend in ("pallas", "xla"):
+        model, timed = train_model(dev, "pallas_resident", roi_adjoint_backend=backend)
+        batches = bucket_batches(model, *train_batch(np.random.RandomState(22), ABLATE_SINGLE),
+                                 24, dev)
+        draws = [dist_draws(model, batches[0], 8, 950 + s) for s in range(3)]
+        before = trained_state(model)
+        if backend == "pallas":
+            cuda_roi_align.roi_align_adjoint = record
+        try:
+            timed.step(batches, draws=[draws[0]])
+        finally:
+            cuda_roi_align.roi_align_adjoint = adjoint
+        states[backend] = update_of(before, trained_state(model))
+        launch_counts(zero=True)
+        for d in draws[1:]:
+            timed.step(batches, draws=[d])
+        out[backend] = {"step_ms": [t * 1e3 for t in timed.times[1:]],
+                        "first_step_ms": timed.times[0] * 1e3, "launches": launch_counts()}
+        del model, timed, batches
+        torch.cuda.empty_cache()
+    paths["ablate_xla_adjoint"] = out["xla"]["launches"]
+    check_launches("ablate_xla_adjoint", out["xla"]["launches"], ("fused_stem", "roi_align"),
+                   P1_NO_K6 + NO_K5_PATH)
+    num = sum(float(((states["xla"][k] - states["pallas"][k]) ** 2).sum()) for k in states["xla"])
+    den = sum(float((states["pallas"][k] ** 2).sum()) for k in states["pallas"])
+    rel = (num / max(den, 1e-300)) ** 0.5
+
+    # the captured cotangent: K5 and the scatter-add adjoint (f32 sums, then
+    # bf16 as the "xla" backward returns it) against the f32 plain adjoint
+    g, rois, shapes = captured[0]
+    want = multilevel_roi_align_adjoint(g, rois, shapes)
+    mass = multilevel_roi_align_adjoint(g.abs(), rois, shapes)
+    k5 = cuda_roi_align.roi_align_adjoint(g, rois, shapes, torch.bfloat16)
+    xla = tuple(x.to(torch.bfloat16).permute(0, 3, 1, 2) for x in want)
+    err_k5, tol, ok_k5 = check_adjoint(k5, want, mass, torch.bfloat16)
+    err_xla, _, ok_xla = check_adjoint(xla, want, mass, torch.bfloat16)
+    k5_ms = median_ms(lambda: cuda_roi_align.roi_align_adjoint(g, rois, shapes, torch.bfloat16),
+                      5)
+    xla_ms = median_ms(lambda: multilevel_roi_align_adjoint(g, rois, shapes), 5)
+    # index_add_ under torch.use_deterministic_algorithms(True), as phase 7 runs phase 1
+    try:
+        torch.use_deterministic_algorithms(True)
+        det_ms = median_ms(lambda: multilevel_roi_align_adjoint(g, rois, shapes), 3)
+        det = f"runs, {det_ms:.3f} ms"
+    except RuntimeError as e:
+        det_ms, det = None, f"raises: {str(e).splitlines()[0][:200]}"
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # one step with the K6 forward under "xla"
+    model, timed = train_model(dev, "pallas", roi_adjoint_backend="xla")
+    batches = bucket_batches(model, *train_batch(np.random.RandomState(22), ABLATE_SINGLE), 24,
+                             dev)
+    timed.step(batches, draws=[dist_draws(model, batches[0], 8, 960)])
+    launch_counts(zero=True)
+    timed.step(batches, draws=[dist_draws(model, batches[0], 8, 961)])
+    paths["ablate_xla_adjoint_pallas"] = launch_counts()
+    pallas_ms = timed.times[1] * 1e3
+    losses = timed.losses[-1]
+    del model, timed, batches
+    torch.cuda.empty_cache()
+    check_launches("ablate_xla_adjoint_pallas", paths["ablate_xla_adjoint_pallas"],
+                   ("fused_stem", "roi_align_patch"), P1_CLI_NEVER + NO_K5_PATH + ("roi_align",))
+    b, r, o = g.shape[:3]
+    log(f"ablate: roi_adjoint_backend xla vs pallas (K5): captured cotangent {b}x{r} rois "
+        f"{o}x{o}: K5 off the f32 plain adjoint by {err_k5:.3g}, the xla adjoint (bf16) by "
+        f"{err_xla:.3g} ({tol}); adjoint alone K5 {k5_ms:.3f} ms, scatter-add {xla_ms:.3f} ms; "
+        f"under torch.use_deterministic_algorithms(True) the scatter-add {det}; the first "
+        f"step's update off the default's by {rel:.3g} of its norm (limit 1e-3); steps "
+        f"(after the first) pallas " + ", ".join(f"{t:.1f}" for t in out["pallas"]["step_ms"])
+        + " ms, xla " + ", ".join(f"{t:.1f}" for t in out["xla"]["step_ms"]) + " ms; one "
+        f"step with the K6 forward under xla {pallas_ms:.1f} ms; launches xla "
+        f"{out['xla']['launches']}, xla with K6 {paths['ablate_xla_adjoint_pallas']}")
+    if not (ok_k5 and ok_xla) or rel > 1e-3 or not np.isfinite(losses["loss"]):
+        raise SystemExit(f"ablate: the xla adjoint disagrees (K5 {err_k5}, xla {err_xla}, "
+                         f"update {rel})")
+    report["adjoint"] = {"k5_err": err_k5, "xla_err": err_xla, "k5_ms": k5_ms,
+                         "xla_adjoint_ms": xla_ms, "deterministic": det,
+                         "deterministic_ms": det_ms, "update_rel": rel,
+                         "pallas_step_ms": out["pallas"]["step_ms"],
+                         "xla_step_ms": out["xla"]["step_ms"], "xla_k6_step_ms": pallas_ms}
+
+
+def ablate_accum(dev, paths, report):
+    """The grad/accum/apply triple: at weight 1 on one bucket against
+    ``Phase1Trainer.step`` (same weights and draws, deterministic
+    algorithms), then on a mixed batch beside ``Phase1Trainer``."""
+    states = {}
+    for form in ("trainer", "triple"):
+        model, timed = train_model(dev, "pallas_resident")
+        batches = bucket_batches(model, *train_batch(np.random.RandomState(23), ABLATE_SINGLE),
+                                 24, dev)
+        d = dist_draws(model, batches[0], 8, 970)
+        if form == "trainer":
+            timed.step(batches, draws=[d])
+        else:
+            grad_fn, _, apply_fn = make_phase1_grad_apply(model, timed.optimizer)
+            grads, _ = grad_fn(batches[0], 1.0, draws=d)
+            apply_fn(grads)
+        states[form] = trained_state(model, timed.optimizer)
+        del model, timed, batches
+        torch.cuda.empty_cache()
+    diff = [k for k in states["trainer"] if not torch.equal(states["trainer"][k],
+                                                            states["triple"][k])]
+    rows = {}
+    for form in ("trainer", "triple"):
+        model, timed = train_model(dev, "pallas_resident")
+        batches = bucket_batches(model, *train_batch(np.random.RandomState(24), ABLATE_MIXED),
+                                 24, dev)
+        draws = [[dist_draws(model, b, b["images"].shape[0], 980 + 10 * s + i)
+                  for i, b in enumerate(batches)] for s in range(2)]
+        if form == "trainer":
+            step = lambda ds: timed.step(batches, draws=ds)  # noqa: E731
+        else:
+            grad_fn, accum_fn, apply_fn = make_phase1_grad_apply(model, timed.optimizer)
+
+            def step(ds):
+                acc, lf = None, {}
+                for b, d in zip(batches, ds):
+                    w = b["images"].shape[0] / 8
+                    grads, losses = grad_fn(b, w, draws=d)
+                    acc = grads if acc is None else accum_fn(acc, grads)
+                    for k, v in losses.items():
+                        lf[k] = lf.get(k, 0.0) + w * float(v)
+                apply_fn(acc)
+                return lf
+        step(draws[0])
+        count = timed.optimizer.count
+        torch.cuda.reset_peak_memory_stats(dev)
+        launch_counts(zero=True)
+        ms, losses = synced_ms(lambda: step(draws[1]))
+        counts = launch_counts()
+        rows[form] = {"step_ms": ms, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "count": timed.optimizer.count - count, "buckets": len(batches),
+                      "losses": {k: float(v) for k, v in losses.items()}}
+        if form == "triple":
+            paths["ablate_accum"] = counts
+        del model, timed, batches
+        torch.cuda.empty_cache()
+    check_launches("ablate_accum", paths["ablate_accum"], TRAIN_PATH, P1_NO_K6)
+    t, p = rows["triple"], rows["trainer"]
+    log(f"ablate: grad/accum/apply triple at weight 1 on one bucket vs Phase1Trainer.step "
+        f"(deterministic algorithms): {len(diff)} of {len(states['trainer'])} tensors differ; "
+        f"mixed batch of {t['buckets']} buckets: triple {t['step_ms']:.1f} ms, peak "
+        f"{t['peak_gib']:.2f} GiB, {t['count']} update, loss {t['losses']['loss']:.4f} "
+        f"(match {t['losses']['loss_match']:.4f}); Phase1Trainer {p['step_ms']:.1f} ms, peak "
+        f"{p['peak_gib']:.2f} GiB, loss {p['losses']['loss']:.4f}; launches "
+        f"{paths['ablate_accum']}")
+    if diff:
+        raise SystemExit(f"ablate: the triple at weight 1 is not Phase1Trainer's step: {diff[:5]}")
+    if t["count"] != 1 or t["buckets"] != 2 or not all(np.isfinite(v)
+                                                        for v in t["losses"].values()):
+        raise SystemExit(f"ablate: the triple's mixed step failed: {t}")
+    report["accum"] = {"weight_one_bit_equal": True, "triple": t, "trainer": p}
+
+
+def ablate_stages(dev, paths, report):
+    """Forward and step ms for each stage of ``profile_losses`` and the
+    optimizer alone; "full" equals the step's loss."""
+    model, timed = train_model(dev, "pallas_resident")
+    batches = bucket_batches(model, *train_batch(np.random.RandomState(25), ABLATE_SINGLE), 24,
+                             dev)
+    d = dist_draws(model, batches[0], 8, 990)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        full = float(model.profile_losses(batches, "full", draws=[d]).detach())
+        step_loss = float(timed.step(batches, draws=[d])["loss"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launch_counts(zero=True)
+    rows = stage_rows(model, timed.optimizer, batches, [d], ABLATE_STAGES + ("opt",))
+    paths["ablate_stages"] = launch_counts()
+    del model, timed, batches
+    torch.cuda.empty_cache()
+    check_launches("ablate_stages", paths["ablate_stages"], TRAIN_PATH, P1_NO_K6)
+    log("ablate: stages (batch 8 at 800x1344, ms forward / step): " + "; ".join(
+        f"{r['stage']} {r.get('fwd_ms', float('nan')):.1f} / {r['step_ms']:.1f}" for r in rows)
+        + f"; full {full:.6f} vs the step's loss {step_loss:.6f}; launches "
+        f"{paths['ablate_stages']}")
+    if full != step_loss:
+        raise SystemExit(f"ablate: profile_losses('full') {full} is not the step's loss "
+                         f"{step_loss}")
+    report["stages"] = rows
+
+
+def ablate_infer_gt(dev, paths, report):
+    """``inference(gt=)`` on the video model at serving width (batch 11, G
+    = 4 drawn boxes an image, one row invalid): the GT rows first, score 1
+    where valid; the other rows as ``inference`` without ``gt``.  Returns
+    the model, the images and the outputs."""
+    model = serving_model(dev)
+    rng = np.random.RandomState(26)
+    images = [synthetic_image(rng, 720, 1280)[0] for _ in range(11)]
+    (bucket,) = batch_images(images, model.cfg.transform, dev)
+    sizes = torch.as_tensor(bucket.sizes, device=dev)
+    g = 4
+    x1 = rng.uniform(0, 900, (11, g))
+    y1 = rng.uniform(0, 500, (11, g))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(40, 400, (11, g)),
+                      y1 + rng.uniform(40, 280, (11, g))], -1).astype(np.float32)
+    valid = np.ones((11, g), bool)
+    valid[:, -1] = False
+    gt = {"boxes": torch.as_tensor(boxes, device=dev),
+          "labels": torch.as_tensor(rng.randint(1, 14, (11, g)), device=dev),
+          "valid": torch.as_tensor(valid, device=dev)}
+    plain = model.inference(bucket.pixels, sizes, with_masks=True)
+    launch_counts(zero=True)
+    ms, out = synced_ms(lambda: model.inference(bucket.pixels, sizes, with_masks=True, gt=gt))
+    paths["infer_gt"] = launch_counts()
+    check_launches("infer_gt", paths["infer_gt"], ("fused_stem", "roi_align"), INFER_GT_NEVER)
+    head = (torch.equal(out["boxes"][:, :g], gt["boxes"])
+            and torch.equal(out["scores"][:, :g], gt["valid"].float())
+            and torch.equal(out["labels"][:, :g], gt["labels"])
+            and torch.equal(out["valid"][:, :g], gt["valid"]))
+    rest = {k: float((out[k][:, g:].float() - v.float()).abs().max()) for k, v in plain.items()}
+    equal = {k: torch.equal(out[k][:, g:], v) for k, v in plain.items()}
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+    d = plain["boxes"].shape[1]
+    log(f"ablate: inference(gt=) at batch 11 (720x1280 on 800x1344), G = {g} (one row "
+        f"invalid) + D = {d} rows in {ms:.1f} ms: GT rows first with score 1 where valid "
+        f"{head}; the D rows bit-equal to inference without gt {equal} (max differences "
+        f"{rest}); launches {paths['infer_gt']}")
+    exact = ("boxes", "scores", "labels", "valid", "roi_features")
+    if not head or not finite or not all(equal[k] for k in exact) \
+            or rest["match_features"] > 1e-4 or rest["masks"] > 1e-2:
+        raise SystemExit("ablate: inference(gt=) failed its checks")
+    report["infer_gt"] = {"ms": ms, "bit_equal": equal, "max_diff": rest}
+    return model, images, out
+
+
+def ablate_trace(dev, model, paths, report):
+    """One ``SeamRetrieval.retrieve`` request traced under
+    ``annotate("retrieve")`` into build/chip_smoke_trace/: the trace names
+    the annotation and the CUDA kernels of K1-K4."""
+    out_dir = Path("build") / "chip_smoke_trace"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    retr = SeamRetrieval(model, chunk=11)
+    rng = np.random.RandomState(27)
+    gallery = retr.build_gallery([synthetic_image(rng, 600, 800)[0] for _ in range(4)])
+    frames = [synthetic_image(rng, 720, 1280)[0] for _ in range(10)]
+    retr.retrieve(frames, gallery, k=2)  # warm-up outside the trace
+    launch_counts(zero=True)
+    with profiling.trace(str(out_dir)):
+        with profiling.annotate("retrieve"):
+            retr.retrieve(frames, gallery, k=2)
+    paths["trace_retrieve"] = launch_counts()
+    check_launches("trace_retrieve", paths["trace_retrieve"], SERVING_PATH, SERVE_IDLE)
+    files = sorted(out_dir.glob("*.pt.trace.json"))
+    text = files[0].read_text() if len(files) == 1 else ""
+    names = ("retrieve", "stem_kernel", "roi_align_kernel", "nlb_kernel", "pairwise_kernel")
+    found = {n: n in text for n in names}
+    log(f"ablate: utils.profiling.trace of one retrieve request: {[str(f) for f in files]} "
+        f"({len(text)} bytes) names {found}; launches {paths['trace_retrieve']}")
+    if not all(found.values()):
+        raise SystemExit(f"ablate: the trace misses {[n for n, v in found.items() if not v]}")
+    report["trace"] = {"file": str(files[0]), "bytes": len(text)}
+
+
+def ablate_visualize(images, out, report):
+    """``utils.visualize.visualize_matches`` on the detector's CUDA outputs,
+    where matplotlib is importable."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        log(f"ablate: matplotlib is not importable here ({e}); visualize not run")
+        report["visualize"] = {"matplotlib": False}
+        return
+    path = Path("build") / "chip_smoke_trace" / "matches.png"
+    v0, v1 = out["valid"][0], out["valid"][1]
+    visualize.visualize_matches(
+        torch.as_tensor(images[0]).cuda(), torch.as_tensor(images[1]).cuda(),
+        out["boxes"][0][v0], out["boxes"][1][v1], scores=out["scores"][0][v0],
+        out_path=str(path))
+    size = path.stat().st_size
+    log(f"ablate: matplotlib {matplotlib.__version__} importable; visualize_matches of the "
+        f"detector's CUDA outputs wrote {path} ({size} bytes)")
+    if size == 0:
+        raise SystemExit("ablate: visualize_matches wrote an empty file")
+    report["visualize"] = {"matplotlib": matplotlib.__version__, "png": str(path), "bytes": size}
+
+
+def phase_ablate(dev):
+    """Phase 9: the phase-1 ablation paths at full width (phase 4's batch 8 at
+    800x1344 and ``train_model``), inference with GT, a traced request and
+    the visualizer."""
+    t_phase = time.perf_counter()
+    paths, report = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ablate_remat(dev, paths, report)
+        ablate_accum(dev, paths, report)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ablate_adjoint(dev, paths, report)
+    ablate_stages(dev, paths, report)
+    model, images, out = ablate_infer_gt(dev, paths, report)
+    ablate_trace(dev, model, paths, report)
+    ablate_visualize(images, out, report)
+    del model, out
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"ablate: phase 9 took {report['seconds']:.1f} s")
     return paths, report
 
 
@@ -2621,6 +3238,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_launches, dist_report = phase_dist(dev)
     paths.update(dist_launches)
+    torch.cuda.empty_cache()
+    ablate_launches, ablate_report = phase_ablate(dev)
+    paths.update(ablate_launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2639,7 +3259,8 @@ def main() -> int:
         "train_step_buckets": step_buckets, "train_peak_gib": train_peak_gb,
         "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
         "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses,
-        "seam": seam_report, "serve": serve_report, "cli": cli_report, "dist": dist_report}))
+        "seam": seam_report, "serve": serve_report, "cli": cli_report, "dist": dist_report,
+        "ablate": ablate_report}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

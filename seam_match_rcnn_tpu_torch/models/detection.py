@@ -5,6 +5,7 @@ decode and clip, score > ``score_thresh``, small-box removal, score-sorted
 truncation to ``nms_pre`` candidates, class-offset NMS, ``detections_per_img``
 outputs, and the whole-image fallback box (score 1.0 for the image model,
 0.1 for the video model) when nothing survives.  Batched over images.
+``prepend_gt`` puts ground-truth boxes before the detections.
 """
 
 from __future__ import annotations
@@ -75,3 +76,16 @@ def postprocess_detections(class_logits: torch.Tensor, box_deltas: torch.Tensor,
     out_labels = torch.where(none[:, None], torch.zeros_like(out_labels), out_labels)
     out_mask = torch.where(none[:, None], first, mask)
     return Detections(out_boxes, out_scores, out_labels, out_mask)
+
+
+def prepend_gt(det: Detections, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+               gt_valid: torch.Tensor) -> Detections:
+    """The video model's evaluation path (video_matchrcnn.py:255-262 of the
+    reference): GT boxes [B, G, 4], labels and valid [B, G] put before the
+    detections, with score 1 where valid and 0 where not."""
+    gt_valid = gt_valid.to(torch.bool)
+    return Detections(
+        boxes=torch.cat([gt_boxes.to(det.boxes.dtype), det.boxes], dim=1),
+        scores=torch.cat([gt_valid.to(det.scores.dtype), det.scores], dim=1),
+        labels=torch.cat([gt_labels.to(det.labels.dtype), det.labels], dim=1),
+        valid=torch.cat([gt_valid, det.valid], dim=1))

@@ -15,8 +15,19 @@ RoIAlign backends (``RoIHeadsConfig.roi_align_backend``): "xla" (the plain
 exact version), "pallas_resident" (kernel K2, exact), "pallas" (kernel K6,
 the TPU kernel's 40x48-cell window) and "pallas_int8" (kernel K7 over an
 int8 pyramid quantized once per forward); every one but "pallas_int8" is
-trainable (the kernels' backward is K5), and the window backends take the
-exact fixup when ``roi_align_fixup_budget`` > 0.  The tile-sorted box path
+trainable, and the window backends take the exact fixup when
+``roi_align_fixup_budget`` > 0.  The kernels' backward is
+``RoIHeadsConfig.roi_adjoint_backend``: "pallas" (kernel K5) or "xla" (the
+scatter-add adjoint); the "xla" forward ignores it, since autograd
+transposes the plain forward itself, as in the JAX package.
+``ModelConfig.remat_backbone`` recomputes each backbone bottleneck in the
+backward (``models/resnet.py``).
+
+Two measurement and evaluation surfaces of the JAX model are here too:
+``profile_losses`` (the loss of a cumulative prefix of the phase-1
+pipeline, ``tools/profile_torch_train.py``'s stages) and ``inference(gt=)``
+(ground-truth boxes prepended to the detections with score 1, the video
+model's evaluation path).  The tile-sorted box path
 of the JAX model and its unpermute are gone (every kernel returns rois in
 natural order).  Public outputs keep the JAX shapes and padding.  Random
 draws of the samplers come from a ``torch.Generator`` or are handed in
@@ -34,17 +45,22 @@ from ..config import ModelConfig
 from ..losses import detection as det_losses
 from ..losses.match import match_loss_supervised
 from ..ops.boxes import box_iou, encode_boxes
-from ..ops.cuda_roi_align import roi_align, roi_align_patch, roi_align_patch_int8
+from ..ops.cuda_roi_align import (ADJOINT_BACKENDS, roi_align, roi_align_patch,
+                                  roi_align_patch_int8)
 from ..ops.roi_align import multilevel_roi_align
 from ..ops.roi_align_patch import apply_exact_fixup, quantize_features_int8
 from ..ops.targets import assign_and_sample
 from .anchors import grid_anchors
-from .detection import postprocess_detections
+from .detection import postprocess_detections, prepend_gt
 from .heads import FastRCNNPredictor, MaskHead, MaskPredictor, RPNHead, TwoMLPHead
 from .match_head import MatchPredictor, TemporalAggregator
 from .resnet import BackboneWithFPN
 from .rpn import flatten_rpn_outputs, select_proposals, topk_stable
 from .transform import normalize
+
+# the cumulative prefixes of the phase-1 pipeline that ``train_export`` can
+# stop after; ``profile_losses`` also takes "match" and "full" (everything)
+PROFILE_STAGES = ("backbone", "rpn", "sample", "boxbranch", "mask")
 
 
 def _select_match_slots(pos_props: torch.Tensor, pos_valid: torch.Tensor,
@@ -90,6 +106,12 @@ class MatchRCNN(nn.Module):
             raise ValueError(
                 f"unknown roi_align_backend {rh.roi_align_backend!r}; expected 'xla', "
                 "'pallas', 'pallas_int8' or 'pallas_resident'")
+        if rh.roi_adjoint_backend not in ADJOINT_BACKENDS:
+            raise ValueError(
+                f"unknown roi_adjoint_backend {rh.roi_adjoint_backend!r}; expected 'pallas' "
+                "(kernel K5) or 'xla' (the scatter-add adjoint)")
+        if not isinstance(cfg.remat_backbone, bool):
+            raise ValueError(f"remat_backbone must be True or False, not {cfg.remat_backbone!r}")
         # f32 paths (match/aggregator trunks, NLB, pairwise scorer) must not
         # run in TF32, cuDNN's default for convolutions
         torch.backends.cudnn.allow_tf32 = False
@@ -98,7 +120,7 @@ class MatchRCNN(nn.Module):
         self.video = video
         dt = getattr(torch, cfg.compute_dtype)
         tdt = getattr(torch, cfg.match.trunk_dtype)
-        self.backbone = BackboneWithFPN(dt, cfg.stem_backend)
+        self.backbone = BackboneWithFPN(dt, cfg.stem_backend, remat=cfg.remat_backbone)
         self.rpn = nn.ModuleDict({"head": RPNHead(cfg.anchors.num_anchors_per_location, dt)})
         heads = {
             "box_head": TwoMLPHead(256, rh.box_roi_output, dt),
@@ -162,16 +184,17 @@ class MatchRCNN(nn.Module):
         """levels from ``roi_levels`` (P2..P5; a P6 after them is ignored),
         ``prequant`` from ``_quantize_pyramid`` (required by "pallas_int8");
         [B, R, 4] rois -> [B*R, C, out, out] in the features' dtype.
-        Differentiable in the features (K5 backward), but for "pallas_int8"."""
+        Differentiable in the features (backward ``roi_adjoint_backend``), but
+        for "pallas_int8"."""
         rh = self.cfg.roi_heads
-        backend, ratio = rh.roi_align_backend, rh.sampling_ratio
+        backend, ratio, adjoint = rh.roi_align_backend, rh.sampling_ratio, rh.roi_adjoint_backend
         if backend == "xla":
             return multilevel_roi_align(levels[:4], rois, output_size, ratio)
         rois = rois.contiguous()
         if backend == "pallas_resident":  # exact: the fixup would change nothing
-            return roi_align(levels[:4], rois, output_size, ratio)
+            return roi_align(levels[:4], rois, output_size, ratio, adjoint=adjoint)
         if backend == "pallas":
-            out = roi_align_patch(levels[:4], rois, output_size, ratio)
+            out = roi_align_patch(levels[:4], rois, output_size, ratio, adjoint=adjoint)
         else:
             if prequant is None:
                 raise ValueError('"pallas_int8" needs the int8 pyramid of the forward: pass '
@@ -216,14 +239,21 @@ class MatchRCNN(nn.Module):
     @torch.no_grad()
     def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,
                   with_masks: bool = False, with_match: bool = True,
-                  with_roi_features: bool = True) -> Dict[str, torch.Tensor]:
+                  with_roi_features: bool = True,
+                  gt: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Eval-mode forward of one canvas batch.
 
         images [B, 3, H, W] in [0, 1]; image_sizes [B, 2] valid (h, w).
         Returns boxes [B, D, 4] (canvas coords), scores [B, D], labels
         [B, D], valid [B, D], roi_features [B, D, 256, 14, 14] f32, masks
         [B, D, 28, 28] f32 (each row's own label's probability, box space)
-        and match_features [B, D, 256], with D = detections_per_img."""
+        and match_features [B, D, 256], with D = detections_per_img.
+
+        ``gt`` (the video model's evaluation path, video_matchrcnn.py:255-262
+        of the reference): boxes [B, G, 4] in canvas coords, labels [B, G],
+        valid [B, G], prepended to the detections with score 1 where valid
+        (``detection.prepend_gt``), so every output has G + D rows and the
+        GT rows feed the 14x14 RoIAlign, masks and descriptors too."""
         image_sizes = image_sizes.to(images.device)
         feats = self.features(images)
         levels = self.roi_levels(feats)
@@ -233,6 +263,9 @@ class MatchRCNN(nn.Module):
         det = postprocess_detections(logits, deltas, props, pvalid, image_sizes,
                                      self.cfg.roi_heads,
                                      fallback_score=0.1 if self.video else 1.0)
+        if gt is not None:
+            det = prepend_gt(det, *(gt[k].to(images.device) for k in ("boxes", "labels",
+                                                                      "valid")))
         out = {"boxes": det.boxes, "scores": det.scores, "labels": det.labels,
                "valid": det.valid}
         b, d = det.boxes.shape[:2]
@@ -257,7 +290,7 @@ class MatchRCNN(nn.Module):
     def train_export(self, images: torch.Tensor, image_sizes: torch.Tensor,
                      gt: Dict[str, torch.Tensor], draws: Optional[Dict[str, torch.Tensor]] = None,
                      generator: Optional[torch.Generator] = None, num_match_slots: int = 8,
-                     num_mask_slots: int = 128):
+                     num_mask_slots: int = 128, profile_stage: Optional[str] = None):
         """One canvas bucket's share of a phase-1 step: detector losses as
         unnormalized parts (their normalizers span the whole batch, see
         ``det_losses_from_parts``), the match-slot RoIs and their metadata,
@@ -268,13 +301,27 @@ class MatchRCNN(nn.Module):
         shop), mask_crops [B, G, S, S].  ``draws``: "rpn" [B, N_anchors] and
         "roi" [B, post_nms_top_n_train + G] uniforms for the two samplers;
         drawn from ``generator`` when None.  Returns (parts, match RoIs [B*k,
-        256, 14, 14] f32, meta: pair_ids, styles, src, valid [B*k])."""
+        256, 14, 14] f32, meta: pair_ids, styles, src, valid [B*k]).
+
+        ``profile_stage`` (the JAX ``_train_core``'s measurement hook, for
+        ``profile_losses``): return (parts, None, None) after the named
+        prefix of the pipeline (``PROFILE_STAGES``): "backbone" (the
+        features), "rpn" (+ RPN head, proposals, RPN loss), "sample" (+ the
+        RoI assignment and sampling), "boxbranch" (+ 7x7 RoIAlign, box head
+        and loss), "mask" (+ 14x14 RoIAlign, mask head and loss).  The
+        parts are those that exist by then; a stage that ends before any
+        loss term adds a "probe" sum that depends on its last output."""
+        if profile_stage is not None and profile_stage not in PROFILE_STAGES:
+            raise ValueError(f"unknown profile stage {profile_stage!r}; expected one of "
+                             f"{PROFILE_STAGES} (or, in profile_losses, 'match' or 'full')")
         rh = self.cfg.roi_heads
         rpn_cfg = self.cfg.rpn
         b = images.shape[0]
         dev = images.device
         image_sizes = image_sizes.to(dev)
         feats = self.features(images)
+        if profile_stage == "backbone":
+            return {"probe": sum(f.to(torch.float32).sum() for f in feats)}, None, None
         levels = self.roi_levels(feats)
         pq = self._quantize_pyramid(levels)
         obj, regs = self.rpn["head"](feats)
@@ -300,6 +347,9 @@ class MatchRCNN(nn.Module):
             torch.cat(logits, dim=1), torch.cat(deltas, dim=1), anchors_all, gt_boxes,
             gt_valid, draws["rpn"], rpn_cfg.batch_size_per_image, rpn_cfg.positive_fraction,
             rpn_cfg.fg_iou_thresh, rpn_cfg.bg_iou_thresh)
+        parts = {"obj_sum": loss_obj.sum(), "rpn_box_sum": loss_box.sum()}
+        if profile_stage == "rpn":
+            return parts, None, None
 
         # --- RoI sampling, GTs appended -------------------------------------
         matched, labels, sample = assign_and_sample(
@@ -309,6 +359,8 @@ class MatchRCNN(nn.Module):
         s_idx = sample.idx
         s_props = take(all_props, s_idx[..., None])
         s_labels, s_matched, s_valid = take(labels, s_idx), take(matched, s_idx), sample.valid
+        if profile_stage == "sample":
+            return dict(parts, probe=s_props.sum()), None, None
 
         # --- box branch (K2 at 7x7) -----------------------------------------
         class_logits, box_deltas = self.box_branch(levels, s_props, pq)
@@ -318,6 +370,9 @@ class MatchRCNN(nn.Module):
         cls_sum, box_sum, samp_n = det_losses.fastrcnn_loss_parts(
             flat(class_logits), flat(box_deltas), flat(s_labels), flat(reg_targets),
             flat(s_valid))
+        parts.update(cls_sum=cls_sum, box_sum=box_sum, samp_n=samp_n)
+        if profile_stage == "boxbranch":
+            return parts, None, None
 
         # --- mask branch (K2 at 14x14; the sampler packs positives first) ---
         m = min(num_mask_slots, s_props.shape[1])
@@ -329,6 +384,9 @@ class MatchRCNN(nn.Module):
                                                     gt_boxes, m_props, m_matched)
         mask_sum, mask_n = det_losses.maskrcnn_loss_parts(mask_logits, flat(mask_t),
                                                           flat(m_labels), flat(m_valid))
+        parts.update(mask_sum=mask_sum, mask_n=mask_n)
+        if profile_stage == "mask":
+            return parts, None, None
 
         # --- match-branch RoIs: top-IoU positives per GT --------------------
         k = num_match_slots
@@ -336,9 +394,6 @@ class MatchRCNN(nn.Module):
         mt_matched = take(m_matched, slot_idx)
         rows = (torch.arange(b, device=dev)[:, None] * m + slot_idx).reshape(-1)
         mt_roi = roi14[rows].to(torch.float32)
-        parts = {"obj_sum": loss_obj.sum(), "rpn_box_sum": loss_box.sum(),
-                 "cls_sum": cls_sum, "box_sum": box_sum, "samp_n": samp_n,
-                 "mask_sum": mask_sum, "mask_n": mask_n}
         meta = {"pair_ids": flat(take(gt["pair_ids"], mt_matched)),
                 "styles": flat(take(gt["styles"], mt_matched)),
                 "src": gt["source"].repeat_interleave(k),
@@ -377,7 +432,8 @@ class MatchRCNN(nn.Module):
     def training_losses(self, buckets: Sequence[Dict],
                         generator: Optional[torch.Generator] = None,
                         draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
-                        group=None) -> Dict[str, torch.Tensor]:
+                        group=None, profile_stage: Optional[str] = None
+                        ) -> Dict[str, torch.Tensor]:
         """The supervised Match R-CNN losses of one batch, given as one dict
         (images, sizes, gt; see ``train_export``) per canvas bucket, with the
         fused batch's semantics: the detector parts are summed over the
@@ -404,20 +460,61 @@ class MatchRCNN(nn.Module):
         reaches the detector only through this rank's RoIs) and the whole
         match predictor gradient.  Summing the gradients over the ranks and
         averaging the match predictor's (``Phase1Trainer`` sets
-        ``SGD.distribute`` so) gives the global batch's gradient."""
+        ``SGD.distribute`` so) gives the global batch's gradient.
+
+        ``profile_stage`` (one process only): the losses of that prefix of
+        the pipeline (``train_export``), normalized as the JAX
+        ``profile_losses`` does: "probe" (1e-6 x the stage's probe sum),
+        "loss_rpn" (objectness + RPN box sums over the images), "loss_box"
+        (classifier + box sums over the sampled RoIs), "loss_mask", each
+        where the stage reaches it."""
+        if profile_stage is not None and group is not None:
+            raise ValueError("profile_stage measures one process; it takes no group")
         draws = draws if draws is not None else [None] * len(buckets)
-        exports = [self.train_export(b["images"], b["sizes"], b["gt"], d, generator)
+        exports = [self.train_export(b["images"], b["sizes"], b["gt"], d, generator,
+                                     profile_stage=profile_stage)
                    for b, d in zip(buckets, draws)]
         parts = {k: sum(e[0][k] for e in exports) for k in exports[0][0]}
+        n_images = sum(b["images"].shape[0] for b in buckets)
+        if profile_stage is not None:
+            return _stage_losses(parts, n_images)
         rois = torch.cat([e[1] for e in exports])
         meta = {k: torch.cat([e[2][k] for e in exports]) for k in exports[0][2]}
-        n_images = sum(b["images"].shape[0] for b in buckets)
         if group is not None:
             rois, meta, parts, n_images = _global_match_batch(rois, meta, parts, n_images,
                                                               group)
         losses = self.det_losses_from_parts(parts, n_images)
         losses["loss_match"] = self.match_loss_from_rois(rois, meta)
         return losses
+
+    def profile_losses(self, buckets: Sequence[Dict], stage: str,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None
+                       ) -> torch.Tensor:
+        """The scalar loss of the cumulative prefix of the phase-1 pipeline
+        named by ``stage`` (the JAX ``MatchRCNN.profile_losses``, the
+        surface of ``tools/profile_torch_train.py``): "match" and "full" are
+        ``sum(training_losses(...))``; the stages of ``PROFILE_STAGES`` sum
+        the loss parts that exist by then with the same normalizers, plus a
+        1e-6 probe term where the prefix has no loss yet."""
+        full = stage in ("match", "full")
+        return sum(self.training_losses(buckets, generator, draws,
+                                        profile_stage=None if full else stage).values())
+
+
+def _stage_losses(parts: Dict[str, torch.Tensor], n_images: int) -> Dict[str, torch.Tensor]:
+    """``training_losses``' terms of a truncated pipeline, in the JAX
+    ``profile_losses``' order of summation."""
+    out = {}
+    if "probe" in parts:
+        out["probe"] = parts["probe"] * 1e-6
+    if "obj_sum" in parts:
+        out["loss_rpn"] = (parts["obj_sum"] + parts["rpn_box_sum"]) / n_images
+    if "cls_sum" in parts:
+        out["loss_box"] = (parts["cls_sum"] + parts["box_sum"]) / parts["samp_n"].clamp(min=1)
+    if "mask_sum" in parts:
+        out["loss_mask"] = parts["mask_sum"] / (parts["mask_n"].clamp(min=1) * (28 * 28))
+    return out
 
 
 _META_KEYS = ("pair_ids", "styles", "src", "valid")

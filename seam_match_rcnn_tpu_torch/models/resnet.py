@@ -11,6 +11,14 @@ The stem and layer1 are frozen as torchvision's ``trainable_layers=3``
 freezes them: their parameters never require a gradient, so no backward
 runs below layer2 (the JAX package's ``freeze_backbone_stages`` stop and its
 optimizer mask, in one).  K1 has no backward and needs none.
+
+``remat=True`` (``ModelConfig.remat_backbone``, the JAX package's
+``nn.remat(Bottleneck)``) runs each bottleneck under
+``torch.utils.checkpoint`` when a gradient is being recorded: the block
+keeps only its input and recomputes its activations in the backward.  The
+stem (K1) stays outside.  The recompute gives the forward's values bit for
+bit as long as the convolutions pick the same algorithm both times
+(``torch.backends.cudnn.benchmark`` off, PyTorch's default).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_stem import fused_stem
 from .layers import Conv2d, FrozenBatchNorm2d
@@ -56,12 +65,13 @@ class ResNet50(nn.Module):
     """Returns C2..C5 (strides 4/8/16/32)."""
 
     def __init__(self, dt: torch.dtype, stem_backend: str = "xla",
-                 block_counts: Sequence[int] = (3, 4, 6, 3)):
+                 block_counts: Sequence[int] = (3, 4, 6, 3), remat: bool = False):
         super().__init__()
         if stem_backend not in ("xla", "pallas"):
             raise ValueError(f"unknown stem_backend {stem_backend!r}: 'xla' or 'pallas'")
         self.dt = dt
         self.stem_backend = stem_backend
+        self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dt)
         self.bn1 = FrozenBatchNorm2d(64, compute_dtype=dt)
         inplanes, planes = 64, 64
@@ -83,9 +93,11 @@ class ResNet50(nn.Module):
         else:
             x = F.relu(self.bn1(self.conv1(x)))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for i in range(1, 5):
-            x = getattr(self, f"layer{i}")(x)
+            for block in getattr(self, f"layer{i}"):
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             outs.append(x)
         return tuple(outs)
 
@@ -115,9 +127,9 @@ class FPN(nn.Module):
 
 
 class BackboneWithFPN(nn.Module):
-    def __init__(self, dt: torch.dtype, stem_backend: str = "xla"):
+    def __init__(self, dt: torch.dtype, stem_backend: str = "xla", remat: bool = False):
         super().__init__()
-        self.body = ResNet50(dt, stem_backend)
+        self.body = ResNet50(dt, stem_backend, remat=remat)
         self.fpn = FPN(dt)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -14,6 +14,10 @@ K2, ``ops/roi_align.multilevel_roi_align_adjoint``.  The source notes in the
 counterpart of ``pallas_roi_align_resident_trainable`` (forward K2) and of
 ``pallas_roi_align_trainable`` (forward K6): backward K5, the exact
 adjoint, no gradient for the rois (the reference detaches its proposals).
+Their ``adjoint`` argument is ``RoIHeadsConfig.roi_adjoint_backend``:
+"pallas" (the default) is K5, "xla" the scatter-add adjoint of
+``ops/roi_align.multilevel_roi_align_adjoint`` (``index_add_``, stock ops
+on the cotangent's device), which the JAX package leaves to XLA.
 
 K6 and K7 replace ``seam_match_rcnn_tpu/ops/pallas_roi_align.py``
 (``pallas_roi_align_batched`` over bf16/f32 features, and over the int8
@@ -38,21 +42,23 @@ ROI_ALIGN_MAX_SAMPLES = 64  # K2's sample coordinates per axis, output_size x ra
 ROI_PATCH_MAX_OUT = 16  # K6/K7's tap tables: output sizes up to 16
 ROI_PATCH_MAX_RATIO = 4  # and 2 x ratio taps per bin and axis
 ROI_ADJOINT_MAX_RATIO = 4  # K5 holds a bin's sample taps in registers
+ADJOINT_BACKENDS = ("pallas", "xla")  # RoIHeadsConfig.roi_adjoint_backend
 
 
 def roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
               sampling_ratio: int = 2,
-              spatial_scales: Tuple[float, ...] = SPATIAL_SCALES) -> torch.Tensor:
+              spatial_scales: Tuple[float, ...] = SPATIAL_SCALES,
+              adjoint: str = "pallas") -> torch.Tensor:
     """features: P2..P5 as [B, C, H_l, W_l]; rois [B, R, 4] -> [B*R, C, out,
     out] in the features' dtype.  CPU tensors take the plain version; CUDA
     tensors launch the kernel, which needs channels_last, 16-byte aligned
     features in f32 or bf16 with C a multiple of 4 (f32) or 8 (bf16), f32
     rois and output_size x sampling_ratio <= 64.  When a level requires a
     gradient, the call goes through ``RoIAlignFunction``, whose backward is
-    K5."""
+    K5 (``adjoint="pallas"``) or the scatter-add adjoint (``"xla"``)."""
     if torch.is_grad_enabled() and any(f.requires_grad for f in features):
         return RoIAlignFunction.apply(_forward, rois, output_size, sampling_ratio,
-                                      tuple(spatial_scales), *features)
+                                      tuple(spatial_scales), adjoint, *features)
     return _forward(features, rois, output_size, sampling_ratio, spatial_scales)
 
 
@@ -115,7 +121,8 @@ roi_align.launches = 0
 
 def roi_align_patch(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
                     sampling_ratio: int = 2,
-                    spatial_scales: Tuple[float, ...] = SPATIAL_SCALES) -> torch.Tensor:
+                    spatial_scales: Tuple[float, ...] = SPATIAL_SCALES,
+                    adjoint: str = "pallas") -> torch.Tensor:
     """K6, the patch-window RoIAlign.  features: P2..P5 as [B, C, H_l, W_l];
     rois [B, R, 4] -> [B*R, C, out, out] in the features' dtype.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (one
@@ -123,11 +130,12 @@ def roi_align_patch(features: Sequence[torch.Tensor], rois: torch.Tensor, output
     16-byte aligned features in f32 or bf16 with C a multiple of 4 (f32) or
     8 (bf16), f32 rois, output_size <= 16 and sampling_ratio <= 4.  When a level
     requires a gradient, the call goes through ``RoIAlignFunction``, whose
-    backward is K5 (the exact adjoint, as the JAX package's trainable
-    wrapper pairs this forward with it)."""
+    backward is K5 or, with ``adjoint="xla"``, the scatter-add adjoint (the
+    exact adjoint either way, as the JAX package's trainable wrapper pairs
+    this forward with it)."""
     if torch.is_grad_enabled() and any(f.requires_grad for f in features):
         return RoIAlignFunction.apply(_patch_forward, rois, output_size, sampling_ratio,
-                                      tuple(spatial_scales), *features)
+                                      tuple(spatial_scales), adjoint, *features)
     return _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales)
 
 
@@ -254,25 +262,34 @@ roi_align_adjoint.launches = 0
 class RoIAlignFunction(torch.autograd.Function):
     """Differentiable multilevel RoIAlign: the given forward (``_forward``,
     K2, or ``_patch_forward``, K6; their plain versions for CPU tensors),
-    backward K5 (or the plain adjoint), the exact adjoint of K2.  The rois
-    get no gradient.  ``apply(forward, rois, output_size, sampling_ratio,
-    spatial_scales, *features)``."""
+    backward the exact adjoint of K2: ``adjoint="pallas"`` is K5 (the plain
+    adjoint for CPU tensors), ``"xla"`` the scatter-add adjoint on any
+    device.  The rois get no gradient.  ``apply(forward, rois, output_size,
+    sampling_ratio, spatial_scales, adjoint, *features)``."""
 
     @staticmethod
-    def forward(ctx, forward, rois, output_size, sampling_ratio, spatial_scales, *features):
+    def forward(ctx, forward, rois, output_size, sampling_ratio, spatial_scales, adjoint,
+                *features):
+        if adjoint not in ADJOINT_BACKENDS:
+            raise ValueError(f"unknown roi_adjoint_backend {adjoint!r}; expected 'pallas' or "
+                             "'xla'")
         ctx.save_for_backward(rois)
-        ctx.meta = (output_size, sampling_ratio, spatial_scales,
+        ctx.meta = (output_size, sampling_ratio, spatial_scales, adjoint,
                     [tuple(f.shape[2:]) for f in features], features[0].dtype)
         return forward(features, rois, output_size, sampling_ratio, spatial_scales)
 
     @staticmethod
     def backward(ctx, grad):
         (rois,) = ctx.saved_tensors
-        output_size, sampling_ratio, spatial_scales, level_shapes, dtype = ctx.meta
+        output_size, sampling_ratio, spatial_scales, adjoint, level_shapes, dtype = ctx.meta
         b, r = rois.shape[:2]
         # [B*R, C, o, o] (a bf16 cotangent for bf16 features) -> f32 NHWC bins
         g = grad.permute(0, 2, 3, 1).to(torch.float32).contiguous()
         g = g.view(b, r, output_size, output_size, -1)
-        grads = roi_align_adjoint(g, rois.contiguous(), level_shapes, dtype, sampling_ratio,
-                                  spatial_scales)
-        return (None, None, None, None, None) + grads
+        if adjoint == "xla":
+            grads = tuple(x.to(dtype).permute(0, 3, 1, 2) for x in multilevel_roi_align_adjoint(
+                g, rois, level_shapes, sampling_ratio, spatial_scales))
+        else:
+            grads = roi_align_adjoint(g, rois.contiguous(), level_shapes, dtype,
+                                      sampling_ratio, spatial_scales)
+        return (None, None, None, None, None, None) + grads

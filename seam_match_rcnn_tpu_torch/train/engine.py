@@ -5,7 +5,10 @@ Port of ``seam_match_rcnn_tpu/train/engine.py``.
 ``train_one_epoch_matchrcnn`` (phase 1): each batch of (images, targets,
 ids) is resized on the device and split into canvas buckets by orientation,
 its GT is padded to ``g_max`` per image, and ``Phase1Trainer.step`` makes
-one update for the whole batch.
+one update for the whole batch.  As in the JAX engine it also takes the
+accumulation triple of ``steps.make_phase1_grad_apply`` (one update a
+batch from the buckets' weighted gradients) and a plain per-bucket step
+callable (an update a bucket, the legacy form).
 
 ``train_one_epoch_movingfashion`` and ``train_one_epoch_multidf2`` (phase
 2, SEAM): each product batch runs the frozen detector through an
@@ -107,6 +110,28 @@ def bucket_batches(model, images: List[np.ndarray], targets: List[Dict], g_max: 
     return out
 
 
+def _bucket_step(step_fn, batches: List[Dict], generator: torch.Generator):
+    """One batch through the triple or the per-bucket callable -> the
+    batch's losses: the triple's are the buckets' summed by weight (the JAX
+    engine's), the callable's the last bucket's."""
+    lf: Dict[str, float] = {}
+    n_total = sum(b["images"].shape[0] for b in batches)
+    if isinstance(step_fn, tuple):
+        grad_fn, accum_fn, apply_fn = step_fn
+        acc = None
+        for batch in batches:
+            w = batch["images"].shape[0] / n_total
+            grads, losses = grad_fn(batch, w, generator)
+            acc = grads if acc is None else accum_fn(acc, grads)
+            for k, v in losses.items():
+                lf[k] = lf.get(k, 0.0) + w * float(v)
+        apply_fn(acc)
+        return lf
+    for batch in batches:
+        lf = {k: float(v) for k, v in step_fn(batch, generator).items()}
+    return lf
+
+
 def train_one_epoch_matchrcnn(model, trainer, data: Iterable[Tuple[List[np.ndarray],
                                                                    List[Dict], List[int]]],
                               epoch: int, generator: torch.Generator, print_freq: int = 100,
@@ -116,8 +141,14 @@ def train_one_epoch_matchrcnn(model, trainer, data: Iterable[Tuple[List[np.ndarr
     """Phase-1 loop over ``data``, which yields (images, targets, ids)
     batches: HWC images in [0, 1] (or uint8) and per-image target dicts
     (boxes in the image's pixels, labels, pair_ids, styles, sources,
-    mask_crops).  ``trainer`` is a ``Phase1Trainer``; its samplers draw from
-    ``generator``.  Returns the last step's losses.
+    mask_crops).  ``trainer`` is one of the JAX engine's three step forms:
+    a ``Phase1Trainer`` (one update a batch with the fused batch's
+    semantics), the (grad_fn, accum_fn, apply_fn) triple of
+    ``steps.make_phase1_grad_apply`` (each bucket weighted by its share of
+    the images, one update a batch, the losses summed by the same weights),
+    or a callable ``step(bucket_batch, generator) -> losses`` taking an
+    update a bucket (exact only for single-orientation batches).  The
+    samplers draw from ``generator``.  Returns the last step's losses.
 
     Mid-epoch checkpoints (no reference equivalent): ``save_fn(step_in_epoch)``
     runs after every ``save_every_steps`` batches, after the update; the
@@ -128,17 +159,22 @@ def train_one_epoch_matchrcnn(model, trainer, data: Iterable[Tuple[List[np.ndarr
     device = next(model.parameters()).device
     logger = MetricLogger()
     lf: Dict[str, float] = {}
+    linked = hasattr(trainer, "step")
+    optimizer = getattr(trainer[2] if isinstance(trainer, tuple) else trainer, "optimizer", None)
     for count, (images, targets, ids) in enumerate(
             lockstep(logger.log_every(data, print_freq, f"Epoch: [{epoch}]",
                                       total=steps_per_epoch), getattr(trainer, "group", None)),
             start=start_step):
-        losses = trainer.step(bucket_batches(model, images, targets, g_max, device), generator)
-        lf = reduce_scalars(losses)
+        batches = bucket_batches(model, images, targets, g_max, device)
+        if linked:
+            lf = reduce_scalars(trainer.step(batches, generator))
+        else:
+            lf = _bucket_step(trainer, batches, generator)
         _check_finite(lf, f"epoch {epoch} step {count} ids {ids}")
         logger.update(**lf)
         if writer is not None and count % print_freq == 0:
             for k, v in lf.items():
-                writer.add_scalar(k, v, global_step=trainer.optimizer.count)
+                writer.add_scalar(k, v, global_step=optimizer.count if optimizer else count)
         if save_fn is not None and save_every_steps > 0 and (count + 1) % save_every_steps == 0:
             save_fn(count)
     return lf

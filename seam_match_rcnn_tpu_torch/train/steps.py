@@ -9,8 +9,12 @@ batch's losses at once, and one ``backward()`` and one optimizer step
 follow.  All bucket graphs stay alive until that backward: at batch 8
 about one fused batch's activations.
 
-The JAX package's gradient-accumulation triple (``make_phase1_grad_apply``)
-is an ablation path and is not ported.
+``make_phase1_grad_apply`` is the JAX package's gradient-accumulation
+triple, an ablation path kept for tests and comparison: each bucket's own
+losses (its own normalizers, no match pairs across buckets) weighted by its
+share of the batch, the gradients summed, and one update a batch.  The
+match trunk's BatchNorm statistics chain from bucket to bucket, as the JAX
+engine threads them.  It runs in one process only.
 
 With a mesh, the step is the global batch's over the mesh's ``data`` axis,
 each rank holding its share of the images (as the JAX package's step on a
@@ -26,7 +30,7 @@ reported losses.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,3 +78,54 @@ class Phase1Trainer:
                                self.group, average=False))
         out["loss"] = sum(out.values())
         return out
+
+
+Grads = List[Optional[torch.Tensor]]
+
+
+def make_phase1_grad_apply(model: MatchRCNN, optimizer: SGD, mesh=None
+                           ) -> Tuple[Callable, Callable, Callable]:
+    """The JAX package's ``make_phase1_grad_apply`` (train/steps.py:79-121):
+    (grad_fn, accum_fn, apply_fn) over ``optimizer.params``.
+
+    * ``grad_fn(batch, weight, generator=None, draws=None)``: one bucket's
+      forward and backward through ``model.training_losses([batch])`` ->
+      (its gradients times ``weight``, detached, one per parameter, None
+      where the loss does not reach it; its detached losses with their sum
+      as "loss").  ``weight`` is the bucket's share of the batch's images;
+      ``draws`` is the bucket's one dict of sampler uniforms.  The forward
+      updates the match trunk's BatchNorm running statistics in place, so
+      they chain through the buckets in the order of the calls.
+    * ``accum_fn(acc, grads)``: the elementwise sum (None counts as absent).
+    * ``apply_fn(grads)``: the gradients into ``.grad`` and one optimizer
+      step (``optimizer.count`` + 1).
+
+    The triple takes no mesh: the JAX package neither calls nor tests it
+    under one.  ``Phase1Trainer(mesh=...)`` is the data-parallel step."""
+    if mesh is not None:
+        raise ValueError("make_phase1_grad_apply takes no mesh: the JAX package neither calls "
+                         "nor tests the accumulation triple under one; use "
+                         "Phase1Trainer(model, optimizer, mesh) for the data-parallel step")
+    params = optimizer.params
+
+    def grad_fn(batch: Dict, weight: float, generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None):
+        losses = model.training_losses([batch], generator,
+                                       None if draws is None else [draws])
+        total = sum(losses.values())
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        out = {k: v.detach() for k, v in losses.items()}
+        out["loss"] = total.detach()
+        return [None if g is None else g * weight for g in grads], out
+
+    def accum_fn(acc: Grads, grads: Grads) -> Grads:
+        return [b if a is None else a if b is None else a + b for a, b in zip(acc, grads)]
+
+    def apply_fn(grads: Grads) -> None:
+        optimizer.zero_grad()
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+
+    apply_fn.optimizer = optimizer
+    return grad_fn, accum_fn, apply_fn

@@ -48,3 +48,23 @@ def test_parallel_layer_imports_without_jax_or_cv2():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_ablation_and_utils_modules_import_without_jax_cv2_or_matplotlib():
+    """``utils.profiling``, ``utils.visualize`` (matplotlib only inside its
+    plotting functions), the steps, the engine, the model and chip_smoke
+    import with jax, cv2, the JAX package and matplotlib blocked."""
+    script = _SCRIPT.replace('sys.modules["cv2"] = None',
+                             'sys.modules["cv2"] = None\nsys.modules["matplotlib"] = None')
+    script = script.replace('for name in names + ["chip_smoke"]:', 'for name in ('
+                            '"seam_match_rcnn_tpu_torch.utils.profiling", '
+                            '"seam_match_rcnn_tpu_torch.utils.visualize", '
+                            '"seam_match_rcnn_tpu_torch.train.steps", '
+                            '"seam_match_rcnn_tpu_torch.train.engine", '
+                            '"seam_match_rcnn_tpu_torch.models.matchrcnn", "chip_smoke"):')
+    assert script.count("matplotlib") == 1 and "chip_smoke\"):" in script
+    script += ("assert not [m for m in sys.modules if m.startswith('matplotlib') "
+               "and sys.modules[m] is not None]\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

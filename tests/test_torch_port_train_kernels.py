@@ -151,7 +151,7 @@ def test_roi_align_function_gradcheck_float64():
 
     def fn(*fs):
         return RoIAlignFunction.apply(cuda_roi_align._forward, rois, 3, 2,
-                                      (0.25, 0.125, 0.0625, 0.03125), *fs)
+                                      (0.25, 0.125, 0.0625, 0.03125), "pallas", *fs)
 
     assert torch.autograd.gradcheck(fn, tuple(feats), eps=1e-6, atol=1e-5, rtol=1e-4)
     # roi_align routes through the Function when a level needs a gradient

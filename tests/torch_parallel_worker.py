@@ -565,7 +565,11 @@ def case_cli_train_matchrcnn(inputs):
     ckpt_io.CheckpointManager.save_mid = save_mid
     mid = ckpt_io.restore_checkpoint(os.path.join(inputs["save_dir"], "matchrcnn", "mid.pt"))
     dist.barrier()  # every rank has read the mid file before the rerun replaces it
-    train_matchrcnn.main(argv + ["--auto_resume"])
+    try:
+        train_matchrcnn.main(argv + ["--auto_resume"])
+    finally:  # later cases in this process see the originals
+        os.replace, ckpt_io.resolve_auto_resume = replace, resolve
+        synthetic.make_synthetic_df2 = make
     model, optimizer = trainers[-1].model, trainers[-1].optimizer
     state = {k: v.numpy() for k, v in model.state_dict().items()}
     state.update({f"momentum:{i}": optimizer.optimizer.state[p]["momentum_buffer"].numpy()
@@ -573,6 +577,115 @@ def case_cli_train_matchrcnn(inputs):
     return {"wrote": wrote, "resumed": resumed, "digest": digest(state),
             "count": optimizer.count, "mid_generator": tuple(mid["generator"].shape),
             "mid_step": (mid["epoch"], mid["step_in_epoch"], mid["optimizer_count"])}
+
+
+# ---- the phase-2 command lines under torchrun's environment ---------------------------
+
+def tiny_cli_cfg():
+    """The tiny serving config the phase-2 CLIs get in place of
+    ``serving_model_config`` (tests/test_torch_port_cli_train.py's)."""
+    return ModelConfig(rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=80),
+                       roi_heads=RoIHeadsConfig(detections_per_img=6),
+                       transform=Canvas96x128(min_size=96, max_size=128),
+                       compute_dtype="float32")
+
+
+def _phase2_cli(inputs, cli, argv, tag, artifacts):
+    """A phase-2 CLI (``cli.main(argv)``, warm-started from the phase-1
+    case's final.pt) stopped right after its first mid save and rerun with
+    ``--auto_resume``, on a 96x128 canvas.  Returns which files this rank
+    wrote, the file each run resumed from, the product batches each run's
+    epoch loop took on this rank, whether this rank's working directory holds the
+    in-loop evaluation's ``artifacts``, the step count, and a digest of the
+    trained model and momentum."""
+    from seam_match_rcnn_tpu_torch.ckpt import io as ckpt_io
+
+    rank = int(os.environ["RANK"])
+    work = os.path.join(inputs["root"], tag, f"rank{rank}")
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)  # the in-loop evaluation writes its artifacts to the cwd
+    cli.serving_model_config = tiny_cli_cfg
+    wrote, resumed, batches, models, optimizers = [], [], [], [], []
+    replace = os.replace
+    os.replace = lambda src, dst: (wrote.append(os.path.basename(dst)), replace(src, dst))[1]
+    resolve = ckpt_io.resolve_auto_resume
+    ckpt_io.resolve_auto_resume = lambda *a: resumed.append(resolve(*a)) or resumed[-1]
+    (epoch_name,) = [n for n in vars(cli) if n.startswith("train_one_epoch_")]
+    epoch_fn, init_model, sgd_cls = getattr(cli, epoch_name), cli.init_model, cli.SGD
+
+    def counted(data):  # the product batches the epoch loop takes
+        batches.append(0)
+        for items in data:
+            batches[-1] += 1
+            yield items
+
+    class Recorded(sgd_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            optimizers.append(self)
+
+    setattr(cli, epoch_name, lambda runner, step, data, *a, **kw: epoch_fn(
+        runner, step, counted(data), *a, **kw))
+    cli.init_model = lambda *a, **kw: models.append(init_model(*a, **kw)) or models[-1]
+    cli.SGD = Recorded
+    argv = argv + ["--device", "cpu", "--save_steps", "1", "--epochs", "1", "--eval_freq", "1",
+                   "--n_shops", "2", "--frames_per_shop_train", "3", "--frames_per_shop_test",
+                   "3", "--print_freq", "1", "--pretrained_path",
+                   os.path.join(inputs["save_dir"], "matchrcnn", "final.pt"),
+                   "--save_dir", os.path.join(inputs["root"], tag, "ckpt"),
+                   "--log_dir", os.path.join(inputs["root"], tag, "runs")]
+    save_mid = ckpt_io.CheckpointManager.save_mid
+
+    def stop(self, payload):
+        save_mid(self, payload)
+        raise Stop()
+
+    ckpt_io.CheckpointManager.save_mid = stop
+    try:
+        cli.main(argv)
+    except Stop:
+        pass
+    finally:
+        ckpt_io.CheckpointManager.save_mid = save_mid
+    artifacts_after_stop = os.path.exists(artifacts)
+    dist.barrier()  # every rank has stopped before the rerun replaces the mid file
+    try:
+        cli.main(argv + ["--auto_resume"])
+    finally:
+        os.replace, ckpt_io.resolve_auto_resume = replace, resolve
+        cli.init_model, cli.SGD = init_model, sgd_cls
+        setattr(cli, epoch_name, epoch_fn)
+    model, optimizer = models[-1], optimizers[-1]
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    state.update({f"momentum:{i}": optimizer.optimizer.state[p]["momentum_buffer"].numpy()
+                  for i, p in enumerate(optimizer.params) if p in optimizer.optimizer.state})
+    return {"wrote": wrote, "resumed": resumed, "batches": batches, "count": optimizer.count,
+            "artifacts": (artifacts_after_stop, os.path.exists(artifacts)),
+            "digest": digest(state)}
+
+
+def case_cli_train_movingfashion(inputs):
+    """``cli/train_movingfashion.py`` on the fixture of ``inputs["mf"]`` (8
+    products, 4 a rank: 2 product batches of 2 a rank) from the phase-1
+    file; the rerun skips the first batch and takes the second."""
+    from seam_match_rcnn_tpu_torch.cli import train_movingfashion
+
+    mf = inputs["mf"]
+    return _phase2_cli(inputs, train_movingfashion,
+                       ["--root", mf["root"], "--train_annots", mf["train"], "--test_annots",
+                        mf["test"]], "mf", os.path.join("logs_mf", "metrics.json"))
+
+
+def case_cli_train_multidf2(inputs):
+    """``cli/train_multidf2.py`` on the MultiDF2 fixture of ``inputs["mdf2"]``
+    (8 products of 4 street views, 4 a rank) from the phase-1 file."""
+    from seam_match_rcnn_tpu_torch.cli import train_multidf2
+
+    m = inputs["mdf2"]
+    return _phase2_cli(inputs, train_multidf2,
+                       ["--root_train", m["images"], "--train_annots", m["train"], "--root_test",
+                        m["test_images"], "--test_annots", m["test"]], "mdf2",
+                       os.path.join("logs_mdf2", "metrics.json"))
 
 
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
