@@ -114,14 +114,31 @@ Phases, one line each:
                traced with utils.profiling.trace into
                build/chip_smoke_trace/ (the trace names the annotation and
                the CUDA kernels of K1-K4), and visualize_matches on the
-               detector's CUDA outputs where matplotlib is importable.
-For phases 3 to 9 the launch counters are zeroed right before each path
+               detector's CUDA outputs where matplotlib is importable;
+ 10. export  - the AOT serving export (tools/export_serving_torch.py):
+               serving_model_config() exported with torch.export from CUDA
+               fake tensors at batch 11 on 800x1344, saved to a temporary
+               .pt2, loaded and replayed on seeded synthetic images (bit-
+               equal to the eager forward; K1 once and K2 twice a replayed
+               forward, the graph calling seam::fused_stem and
+               seam::roi_align), the same at batch 1 under "pallas" (K6)
+               and "pallas_int8" (K7), with export, save and load seconds,
+               MB, and replay against eager ms; the CLI's --out at its
+               defaults (ModelConfig()) and --check on the file; then the
+               retrieval parity gate (tools/validate_parity_torch.py
+               --synthetic) at full geometry for the exact, serving and
+               fast profiles: three top-1 values in [0, 1] a profile, the
+               deltas and the verdict printed, not asserted (random
+               weights).
+For phases 3 to 10 the launch counters are zeroed right before each path
 and read right after (in phase 8 in each rank's process, reported per
 rank); every kernel of the path must have run (on the seam
 paths K3, K4 and K5 must not; on the serve paths K5-K7 must not, nor K3
 and K4 on a detect path; on the phase-1 CLI paths K3, K4 and K7 must not,
 on the phase-2 training epochs K3-K7 must not, and the CLIs' evaluations
-run K1-K4 and never K5-K7; K5 must not run under the "xla" adjoint).  Then the card's name
+run K1-K4 and never K5-K7; K5 must not run under the "xla" adjoint; a
+replayed export runs exactly K1 once and its RoIAlign kernel twice; the
+parity gate's exact profile runs K4 alone, the others K1-K4, none K5-K7).  Then the card's name
 and power limit, a JSON line of per-kernel results, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without that
 line.  There is no CPU fallback.
@@ -3199,6 +3216,152 @@ def phase_ablate(dev):
     return paths, report
 
 
+EXPORT_CASES = (("export_serving", "pallas_resident", 11), ("export_pallas", "pallas", 1),
+                ("export_pallas_int8", "pallas_int8", 1))
+PARITY_NEVER = ("roi_align_adjoint", "roi_align_patch", "roi_align_patch_int8")
+
+
+def export_case(dev, name, backend, batch, paths, report, reps=5):
+    """``tools/export_serving_torch``: ``serving_model_config()`` under the
+    RoIAlign ``backend`` exported at ``batch`` x 800x1344 from CUDA fake
+    tensors, saved to a temporary .pt2, loaded and replayed on seeded
+    synthetic images: the replay equal to the eager forward bit for bit, K1
+    once and the backend's RoIAlign kernel twice (box branch, 14x14 pass) a
+    replayed forward, no other kernel, and the graph calling their ops."""
+    from tools import export_serving_torch as est
+
+    roi_kernel = EVAL_ROI_KERNEL[backend]
+    cfg = serving_model_config(roi_heads=RoIHeadsConfig(roi_align_backend=backend))
+    module, inputs = est.build(batch, (800, 1344), cfg, device=dev)
+    t0 = time.perf_counter()
+    program = est.export(module, inputs)
+    export_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serving.pt2")
+        t0 = time.perf_counter()
+        torch.export.save(program, path)
+        save_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        loaded = est.load(path)
+        load_s = time.perf_counter() - t0
+    ops = est.seam_ops(loaded)
+    replay = loaded.module()
+    rng = np.random.RandomState(40 + batch)
+    (bucket,) = batch_images([synthetic_image(rng, 720, 1280)[0] for _ in range(batch)],
+                             cfg.transform, dev)
+    sizes = torch.as_tensor(bucket.sizes, device=dev)
+    with torch.no_grad():
+        want = module(bucket.pixels, sizes)
+        replay(bucket.pixels, sizes)  # warm-up
+        launch_counts(zero=True)
+        got = replay(bucket.pixels, sizes)
+        torch.cuda.synchronize()
+        paths[name] = launch_counts()
+        eager_ms, replay_ms = [], []
+        for _ in range(reps):
+            eager_ms.append(synced_ms(lambda: module(bucket.pixels, sizes))[0])
+            replay_ms.append(synced_ms(lambda: replay(bucket.pixels, sizes))[0])
+    equal = {k: torch.equal(got[k], want[k]) for k in want}
+    counts = paths[name]
+    want_counts = {k: (1 if k == "fused_stem" else 2 if k == roi_kernel else 0) for k in counts}
+    want_ops = {"seam.fused_stem.default": 1, f"seam.{roi_kernel}.default": 2}
+    row = {"export_s": export_s, "save_s": save_s, "mb": mb, "load_s": load_s,
+           "eager_ms": statistics.median(eager_ms), "replay_ms": statistics.median(replay_ms),
+           "bit_equal": equal, "ops": ops, "valid": int(got["valid"].sum())}
+    log(f"export: {name} ({backend}, batch {batch} on 800x1344): export {export_s:.1f} s, save "
+        f"{save_s:.1f} s, {mb:.1f} MB, load {load_s:.1f} s; replay {row['replay_ms']:.2f} ms "
+        f"against eager {row['eager_ms']:.2f} ms (medians of {reps}); graph ops {ops}; "
+        f"launches {counts}; {row['valid']} valid rows; bit-equal to eager {equal}")
+    if ops != want_ops or counts != want_counts or not all(equal.values()) \
+            or got["boxes"].shape != (batch, cfg.roi_heads.detections_per_img, 4):
+        raise SystemExit(f"export: {name} failed: ops {ops} (want {want_ops}), launches "
+                         f"{counts} (want {want_counts}), bit-equal {equal}")
+    report[name] = row
+    del program, loaded, replay, module, got, want
+    torch.cuda.empty_cache()
+
+
+def export_cli(paths, report):
+    """``tools/export_serving_torch.py --out`` at its defaults (ModelConfig(),
+    batch 11, 800x1344, on the card), then ``--check`` on the file, in
+    process."""
+    from tools import export_serving_torch as est
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serving.pt2")
+        launch_counts(zero=True)
+        rc_out, out_lines, out_s = run_cli(est.main, ["--out", path])
+        rc_check, check_lines, check_s = run_cli(est.main, ["--check", path])
+        paths["export_cli"] = launch_counts()
+        mb = os.path.getsize(path) / 1e6
+    log(f"export: CLI --out in {out_s:.1f} s: {out_lines}")
+    log(f"export: CLI --check in {check_s:.1f} s: {check_lines}")
+    text = "\n".join(check_lines)
+    if rc_out != 0 or rc_check != 0 or "input images: [11, 3, 800, 1344]" not in text \
+            or "custom ops: none" not in text:
+        raise SystemExit("export: the CLI's --out/--check failed")
+    report["export_cli"] = {"out_s": out_s, "check_s": check_s, "mb": mb,
+                            "out": out_lines, "check": check_lines}
+
+
+def parity_gate(paths, report):
+    """``tools/validate_parity_torch.main(["--synthetic"])`` at full geometry
+    (3 products of 1 shop image + 3 frames, random weights) for the three
+    profiles, launches counted per profile: a PARITY_JSON line with three
+    top-1 values in [0, 1] a profile, the deltas and the gate's verdict."""
+    from tools import validate_parity_torch as vp
+
+    need = {"exact": ("pairwise_scores",), "serving": SERVING_PATH, "fast": SERVING_PATH}
+    never = {"exact": ("fused_stem", "roi_align", "nlb_aggregate") + PARITY_NEVER,
+             "serving": PARITY_NEVER, "fast": PARITY_NEVER}
+
+    def counted(run_profile):
+        def run(profile, args):
+            launch_counts(zero=True)
+            out = run_profile(profile, args)
+            paths[f"parity_{profile}"] = launch_counts()
+            return out
+        return run
+
+    with patched(vp, "run_profile", counted):
+        rc, lines, secs = run_cli(vp.main, ["--synthetic"])
+    [line] = [ln for ln in lines if ln.startswith("PARITY_JSON ")]
+    payload = json.loads(line[len("PARITY_JSON "):])
+    gate = [ln for ln in lines if " gate]" in ln]
+    log(f"parity: tools/validate_parity_torch.py --synthetic, 3 profiles in {secs:.1f} s, exit "
+        f"{rc}: {payload}")
+    for ln in gate:
+        log(f"parity: {ln}")
+    log("parity: the weights are random, so the verdict says nothing about accuracy (with "
+        "random weights, near-tie detections flip between numerically different backends); "
+        "the smoke checks the pipeline, not the verdict")
+    for profile in ("exact", "serving", "fast"):
+        check_launches(f"parity_{profile}", paths[f"parity_{profile}"], need[profile],
+                       never[profile])
+        vals = payload.get(profile, {})
+        if set(vals) != {"top1_single", "top1_avg_desc", "top1_aggr_desc"} \
+                or not all(0.0 <= v <= 1.0 for v in vals.values()):
+            raise SystemExit(f"parity: profile {profile} gave {vals}")
+    if rc not in (0, 1) or len(gate) != 6:
+        raise SystemExit(f"parity: exit {rc}, {len(gate)} gate lines")
+    report["parity"] = {"seconds": secs, "exit": rc, "results": payload, "gate": gate}
+
+
+def phase_export(dev):
+    """Phase 10: the AOT serving export (three RoIAlign backends, and the
+    CLI) and the retrieval parity gate's rehearsal."""
+    t_phase = time.perf_counter()
+    paths, report = {}, {}
+    for name, backend, batch in EXPORT_CASES:
+        export_case(dev, name, backend, batch, paths, report)
+    export_cli(paths, report)
+    parity_gate(paths, report)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"export: phase 10 took {report['seconds']:.1f} s")
+    return paths, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3241,6 +3404,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     ablate_launches, ablate_report = phase_ablate(dev)
     paths.update(ablate_launches)
+    torch.cuda.empty_cache()
+    export_launches, export_report = phase_export(dev)
+    paths.update(export_launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3260,7 +3426,7 @@ def main() -> int:
         "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
         "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses,
         "seam": seam_report, "serve": serve_report, "cli": cli_report, "dist": dist_report,
-        "ablate": ablate_report}))
+        "ablate": ablate_report, "export": export_report}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

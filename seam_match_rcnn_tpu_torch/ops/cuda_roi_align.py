@@ -24,6 +24,15 @@ K6 and K7 replace ``seam_match_rcnn_tpu/ops/pallas_roi_align.py``
 pyramid of ``quantize_features_int8`` with its scales).  They compute the
 plain version ``ops/roi_align_patch.roi_align_patch``: the TPU kernel's
 40x48-cell window clamp included, rois in natural order.
+
+The forward kernels are ``torch.library`` custom ops: ``seam::roi_align``
+(K2), ``seam::roi_align_patch`` (K6) and ``seam::roi_align_patch_int8``
+(K7).  Each op's CPU implementation is the plain version, its CUDA
+implementation the launch (which counts the wrapper's ``.launches``), and
+its fake implementation gives the output's shape, dtype and layout, so
+``torch.export`` keeps the ops in the graph and a replayed program launches
+the kernels.  No other device has one.  Autograd stays outside the ops, in
+``RoIAlignFunction``; K5 is not an op (no exported path reaches it).
 """
 
 from __future__ import annotations
@@ -90,10 +99,25 @@ def _check_levels(name, features, rois, spatial_scales, dtypes):
     return b, r, c
 
 
-def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
-    if rois.device.type == "cpu":
-        return multilevel_roi_align(features, rois, output_size, sampling_ratio,
-                                    spatial_scales)
+def _out_like(features, rois, output_size, dtype):
+    """The [B*R, C, out, out] output of the forward kernels: a channels_last
+    view of [B*R, out, out, C], as the kernels and the plain versions write it."""
+    n = rois.shape[0] * rois.shape[1]
+    return features[0].new_empty((n, output_size, output_size, features[0].shape[1]),
+                                 dtype=dtype).permute(0, 3, 1, 2)
+
+
+@torch.library.custom_op("seam::roi_align", mutates_args=(), device_types="cpu")
+def _roi_align_op(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
+                  sampling_ratio: int, spatial_scales: Sequence[float]) -> torch.Tensor:
+    """``seam::roi_align`` on CPU tensors: the plain version."""
+    return multilevel_roi_align(features, rois, output_size, sampling_ratio,
+                                tuple(spatial_scales))
+
+
+@_roi_align_op.register_kernel("cuda")
+def _roi_align_cuda(features, rois, output_size, sampling_ratio, spatial_scales):
+    """``seam::roi_align`` on CUDA tensors: K2's launch."""
     name = "roi_align"
     req = native.require
     dtype = features[0].dtype
@@ -114,6 +138,16 @@ def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
         native.check(status, name)
         roi_align.launches += 1
     return out.permute(0, 3, 1, 2)
+
+
+@_roi_align_op.register_fake
+def _roi_align_fake(features, rois, output_size, sampling_ratio, spatial_scales):
+    return _out_like(features, rois, output_size, features[0].dtype)
+
+
+def _forward(features, rois, output_size, sampling_ratio, spatial_scales):
+    return torch.ops.seam.roi_align(list(features), rois, output_size, sampling_ratio,
+                                    [float(s) for s in spatial_scales])
 
 
 roi_align.launches = 0
@@ -151,18 +185,64 @@ def roi_align_patch_int8(features: Sequence[torch.Tensor], scales: torch.Tensor,
     ``roi_align_patch.quantize_features_int8``; rois [B, R, 4] -> [B*R, C,
     out, out] in ``out_dtype`` (f32 or bf16).  The kernel needs C a multiple
     of 16 and the wrapper checks of ``roi_align_patch``.  No gradient."""
-    return _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales,
-                          scales, out_dtype)
+    return torch.ops.seam.roi_align_patch_int8(list(features), scales, rois, output_size,
+                                               out_dtype, sampling_ratio,
+                                               [float(s) for s in spatial_scales])
 
 
 roi_align_patch_int8.launches = 0
 
 
-def _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales, scales=None,
-                   out_dtype=None):
-    if rois.device.type == "cpu":
-        return patch.roi_align_patch(features, rois, output_size, sampling_ratio,
-                                     spatial_scales, scales=scales, out_dtype=out_dtype)
+def _patch_forward(features, rois, output_size, sampling_ratio, spatial_scales):
+    return torch.ops.seam.roi_align_patch(list(features), rois, output_size, sampling_ratio,
+                                          [float(s) for s in spatial_scales])
+
+
+@torch.library.custom_op("seam::roi_align_patch", mutates_args=(), device_types="cpu")
+def _patch_op(features: Sequence[torch.Tensor], rois: torch.Tensor, output_size: int,
+              sampling_ratio: int, spatial_scales: Sequence[float]) -> torch.Tensor:
+    """``seam::roi_align_patch`` on CPU tensors: the plain version."""
+    return patch.roi_align_patch(features, rois, output_size, sampling_ratio,
+                                 tuple(spatial_scales))
+
+
+@_patch_op.register_kernel("cuda")
+def _patch_cuda(features, rois, output_size, sampling_ratio, spatial_scales):
+    """``seam::roi_align_patch`` on CUDA tensors: K6's launch."""
+    return _patch_launch(features, rois, output_size, sampling_ratio, spatial_scales)
+
+
+@_patch_op.register_fake
+def _patch_fake(features, rois, output_size, sampling_ratio, spatial_scales):
+    return _out_like(features, rois, output_size, features[0].dtype)
+
+
+@torch.library.custom_op("seam::roi_align_patch_int8", mutates_args=(), device_types="cpu")
+def _patch_int8_op(features: Sequence[torch.Tensor], scales: torch.Tensor, rois: torch.Tensor,
+                   output_size: int, out_dtype: torch.dtype, sampling_ratio: int,
+                   spatial_scales: Sequence[float]) -> torch.Tensor:
+    """``seam::roi_align_patch_int8`` on CPU tensors: the plain version."""
+    return patch.roi_align_patch(features, rois, output_size, sampling_ratio,
+                                 tuple(spatial_scales), scales=scales, out_dtype=out_dtype)
+
+
+@_patch_int8_op.register_kernel("cuda")
+def _patch_int8_cuda(features, scales, rois, output_size, out_dtype, sampling_ratio,
+                     spatial_scales):
+    """``seam::roi_align_patch_int8`` on CUDA tensors: K7's launch."""
+    return _patch_launch(features, rois, output_size, sampling_ratio, spatial_scales,
+                         scales, out_dtype)
+
+
+@_patch_int8_op.register_fake
+def _patch_int8_fake(features, scales, rois, output_size, out_dtype, sampling_ratio,
+                     spatial_scales):
+    return _out_like(features, rois, output_size, out_dtype)
+
+
+def _patch_launch(features, rois, output_size, sampling_ratio, spatial_scales, scales=None,
+                  out_dtype=None):
+    """K6's launch (``scales`` None) or K7's, with the wrapper's checks."""
     wrapper = roi_align_patch if scales is None else roi_align_patch_int8
     name = wrapper.__name__
     req = native.require

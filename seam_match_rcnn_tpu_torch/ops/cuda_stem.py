@@ -6,6 +6,12 @@ TPU, the BN scale is folded into the conv weights in f32 before x and the
 weights are rounded to bf16; products accumulate in f32 and the pooled
 result is rounded to bf16.  See the source note in ``csrc/stem.cu`` for
 what bounds the kernel and how it is laid out.
+
+The kernel is the ``torch.library`` custom op ``seam::fused_stem``: its CPU
+implementation is the plain version, its CUDA implementation the launch
+(which counts ``fused_stem.launches``), and its fake implementation gives
+the output's shape and dtype, so ``torch.export`` keeps the op in the graph
+and a replayed program launches the kernel.  No other device has one.
 """
 
 from __future__ import annotations
@@ -51,20 +57,16 @@ def stem_tile():
     return tuple(x.value for x in v)
 
 
-def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
-               bn_shift: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-    """x [B, 3, H, W] f32 or bf16 (normalized; H, W multiples of 4) -> NCHW
-    [B, 64, H/4, W/4] in ``out_dtype`` (bf16, or f32 holding the bf16-rounded
-    value).  The kernel rounds f32 input to bf16 as it loads it, so f32 and
-    bf16 input give the same output.  CPU tensors take the plain version.
-    Forward only, as the TPU kernel: it raises when its input or weights
-    need a gradient (the backbone keeps the stem frozen,
-    ``models/resnet.py``)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, conv_w, bn_scale, bn_shift)):
-        raise RuntimeError("fused_stem has no backward: keep the stem frozen "
-                           "or use stem_backend='xla'")
-    if x.device.type == "cpu":
-        return stem_plain(x, conv_w, bn_scale, bn_shift, out_dtype)
+@torch.library.custom_op("seam::fused_stem", mutates_args=(), device_types="cpu")
+def _stem_op(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
+             bn_shift: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``seam::fused_stem`` on CPU tensors: the plain version."""
+    return stem_plain(x, conv_w, bn_scale, bn_shift, out_dtype)
+
+
+@_stem_op.register_kernel("cuda")
+def _stem_cuda(x, conv_w, bn_scale, bn_shift, out_dtype):
+    """``seam::fused_stem`` on CUDA tensors: the kernel's launch."""
     name = "fused_stem"
     req = native.require
     req(x.device.type == "cuda", name, f"x on {x.device}, not cuda")
@@ -92,6 +94,28 @@ def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
     native.check(status, name)
     fused_stem.launches += 1
     return out
+
+
+@_stem_op.register_fake
+def _stem_fake(x, conv_w, bn_scale, bn_shift, out_dtype):
+    b, _, h, w = x.shape
+    return x.new_empty((b, 64, h // 4, w // 4), dtype=out_dtype)
+
+
+def fused_stem(x: torch.Tensor, conv_w: torch.Tensor, bn_scale: torch.Tensor,
+               bn_shift: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """x [B, 3, H, W] f32 or bf16 (normalized; H, W multiples of 4) -> NCHW
+    [B, 64, H/4, W/4] in ``out_dtype`` (bf16, or f32 holding the bf16-rounded
+    value).  The kernel rounds f32 input to bf16 as it loads it, so f32 and
+    bf16 input give the same output.  The custom op ``seam::fused_stem``:
+    CPU tensors take the plain version, CUDA tensors the kernel, and a
+    traced or exported program keeps the op.  Forward only, as the TPU
+    kernel: it raises when its input or weights need a gradient (the
+    backbone keeps the stem frozen, ``models/resnet.py``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, conv_w, bn_scale, bn_shift)):
+        raise RuntimeError("fused_stem has no backward: keep the stem frozen "
+                           "or use stem_backend='xla'")
+    return torch.ops.seam.fused_stem(x, conv_w, bn_scale, bn_shift, out_dtype)
 
 
 fused_stem.launches = 0

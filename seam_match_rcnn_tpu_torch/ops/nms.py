@@ -12,6 +12,18 @@ solution, and position i is final after i + 1 steps, so the loop ends with
 the exact greedy result; it typically converges in a handful of steps.  All
 rows of the batch iterate together, and the host reads back one flag per
 step, instead of once per box as a Python loop over boxes would.
+
+The loop is the ``while_loop`` higher-order operator of
+``torch._higher_order_ops``, the counterpart of the JAX package's
+``lax.while_loop``: it carries (kept, done), all on the boxes' device, and
+stops once a step changes nothing.  Eagerly it runs the steps as a Python
+loop that reads ``done`` on the host after each; under ``torch.export`` it
+stays one loop node of the graph, where a Python loop that breaks on tensor
+data cannot be traced.  The operator is called directly, with the conflict
+matrix and the valid mask as explicit operands: the public
+``torch._higher_order_ops.while_loop`` lifts closures by compiling the call
+with Dynamo every time, which on the H100 cost 9-15 s for the first call
+of a process and up to 2.3 ms a call after it (``tools/time_torch_nms.py``).
 """
 
 from __future__ import annotations
@@ -19,10 +31,22 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 from .boxes import box_iou
 
 _NEG_INF = -1e10
+
+
+def _not_done(kept, done, conflict_f, svalid):
+    return ~done
+
+
+def _step(kept, done, conflict_f, svalid):
+    """One Jacobi step: (kept, done) -> (the new kept, whether it equals kept)."""
+    hit = torch.bmm(conflict_f, kept.to(torch.float32)[..., None])[..., 0] > 0
+    new = svalid & ~hit
+    return new, (new == kept).all()
 
 
 def _kept_sorted(sboxes: torch.Tensor, svalid: torch.Tensor, iou_threshold: float
@@ -34,13 +58,8 @@ def _kept_sorted(sboxes: torch.Tensor, svalid: torch.Tensor, iou_threshold: floa
     earlier = torch.ones((n, n), dtype=torch.bool, device=sboxes.device).tril(-1)
     conflict = (box_iou(sboxes, sboxes) > iou_threshold) & earlier
     conflict_f = conflict.to(torch.float32)
-    kept = svalid
-    for _ in range(n):
-        hit = torch.bmm(conflict_f, kept.to(torch.float32)[..., None])[..., 0] > 0
-        new = svalid & ~hit
-        if torch.equal(new, kept):
-            break
-        kept = new
+    done = torch.zeros((), dtype=torch.bool, device=sboxes.device)
+    kept, _ = while_loop_op(_not_done, _step, (svalid, done), (conflict_f, svalid))
     return kept
 
 

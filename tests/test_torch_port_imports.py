@@ -68,3 +68,25 @@ def test_ablation_and_utils_modules_import_without_jax_cv2_or_matplotlib():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_export_and_parity_tools_import_without_jax_or_cv2():
+    """``tools/export_serving_torch.py``, ``tools/validate_parity_torch.py``
+    and ``tools/time_torch_nms.py`` import, and build their configs and the
+    ``seam::`` ops, with jax, cv2 and the JAX package blocked."""
+    script = _SCRIPT.replace('for name in names + ["chip_smoke"]:', 'for name in ('
+                             '"tools.export_serving_torch", "tools.validate_parity_torch", '
+                             '"tools.time_torch_nms"):')
+    assert script != _SCRIPT
+    script += ("import torch\n"
+               "import tools.validate_parity_torch as vp\n"
+               "for p in ('exact', 'serving', 'fast'):\n"
+               "    vp.build_config(p, True)\n"
+               "import tools.export_serving_torch as est\n"
+               "from seam_match_rcnn_tpu_torch.ops import cuda_roi_align, cuda_stem\n"
+               "for op in ('fused_stem', 'roi_align', 'roi_align_patch', "
+               "'roi_align_patch_int8'):\n"
+               "    getattr(torch.ops.seam, op).default\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

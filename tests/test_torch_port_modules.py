@@ -121,6 +121,45 @@ def test_nms_matches_jax_with_exact_ties():
         np.testing.assert_array_equal(got_mask[i].numpy(), np.asarray(mask))
 
 
+def test_nms_suppression_chain_matches_jax():
+    """Boxes in a chain, each overlapping the next (IoU 2/3) but not the one
+    after (IoU 3/7): the greedy result alternates, and the Jacobi loop fixes
+    one more position a step, so it runs as many rounds as the chain is
+    long.  Row 0 scores the chain in order, row 1 in reverse with a few
+    invalid boxes, row 2 with every score tied (input order decides)."""
+    n = 48
+    x = np.arange(n, dtype=np.float32) * 2.0
+    chain = np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)], -1).astype(np.float32)
+    boxes = np.stack([chain] * 3)
+    desc = np.linspace(1.0, 0.5, n, dtype=np.float32)
+    scores = np.stack([desc, desc[::-1], np.full(n, 0.5, np.float32)])
+    valid = np.ones((3, n), bool)
+    valid[1, [5, 6, 20]] = False
+    got_kept = nms_kept_mask(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
+                             valid=torch.from_numpy(valid)).numpy()
+    got_idx, got_mask = nms_padded(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5, n,
+                                   valid=torch.from_numpy(valid))
+    np.testing.assert_array_equal(got_kept[0], np.arange(n) % 2 == 0)
+    for i in range(3):
+        want_kept = np.asarray(jax_nms_kept(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), 0.5,
+                                            valid=jnp.asarray(valid[i])))
+        np.testing.assert_array_equal(got_kept[i], want_kept)
+        idx, mask = jax_nms_padded(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), 0.5, n,
+                                   valid=jnp.asarray(valid[i]))
+        np.testing.assert_array_equal(got_idx[i].numpy(), np.asarray(idx))
+        np.testing.assert_array_equal(got_mask[i].numpy(), np.asarray(mask))
+    # the fixed point takes ~n rounds from the all-valid start
+    conflict = np.tril(np.abs(x[:, None] - x[None, :]) == 2.0, -1)
+    kept, rounds = valid[0], 0
+    while True:
+        new = valid[0] & ~(conflict & kept[None, :]).any(1)
+        rounds += 1
+        if (new == kept).all():
+            break
+        kept = new
+    assert rounds >= n - 1
+
+
 @pytest.mark.parametrize("stem", ["xla", "pallas"])
 def test_backbone_fpn_matches_jax(models, stem):
     _, variables, port, images, _ = models
