@@ -129,8 +129,21 @@ Phases, one line each:
                --synthetic) at full geometry for the exact, serving and
                fast profiles: three top-1 values in [0, 1] a profile, the
                deltas and the verdict printed, not asserted (random
-               weights).
-For phases 3 to 10 the launch counters are zeroed right before each path
+               weights);
+ 11. gates   - the serving-profile validation tools in process: the int8,
+               fast-profile and trunk-dtype gates
+               (tools/validate_{int8,fast_profile,trunk_dtype}_torch.py
+               --products 8 --epochs 3 --confusable, fixtures and logs in a
+               temporary directory), each training phase-1 Match R-CNN from
+               scratch at full geometry in f32 (ModelConfig(compute_dtype=
+               "float32"), as the JAX tools: the plain stem and RoIAlign) and
+               evaluating its arms on that one model, one model on the card
+               at a time (each arm must find no earlier model held), with
+               seconds and peak memory per training and arm and the
+               INT8VAL/FASTVAL/TRUNKVAL_JSON line parsed (the JAX tools'
+               keys, top-1 values in [0, 1]); then
+               tools/measure_roi_clamp_torch.py --detector.
+For phases 3 to 11 the launch counters are zeroed right before each path
 and read right after (in phase 8 in each rank's process, reported per
 rank); every kernel of the path must have run (on the seam
 paths K3, K4 and K5 must not; on the serve paths K5-K7 must not, nor K3
@@ -138,7 +151,9 @@ and K4 on a detect path; on the phase-1 CLI paths K3, K4 and K7 must not,
 on the phase-2 training epochs K3-K7 must not, and the CLIs' evaluations
 run K1-K4 and never K5-K7; K5 must not run under the "xla" adjoint; a
 replayed export runs exactly K1 once and its RoIAlign kernel twice; the
-parity gate's exact profile runs K4 alone, the others K1-K4, none K5-K7).  Then the card's name
+parity gate's exact profile runs K4 alone, the others K1-K4, none K5-K7; a gate's training
+runs no kernel, each gate arm K1, its RoIAlign kernel (K2, K6 or K7), K3 and K4 and no other,
+the clamp tool's detector K1 and K2 alone).  Then the card's name
 and power limit, a JSON line of per-kernel results, and last the JSON line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without that
 line.  There is no CPU fallback.
@@ -3362,6 +3377,153 @@ def phase_export(dev):
     return paths, report
 
 
+# ---- phase 11: the serving-profile validation tools ---------------------------------------
+
+GATE_ARGS = ["--products", "8", "--epochs", "3", "--confusable"]
+GATE_EVAL = ("fused_stem", "nlb_aggregate", "pairwise_scores")  # + the arm's RoIAlign kernel
+ROI_KERNELS = ("roi_align", "roi_align_patch", "roi_align_patch_int8")
+# the gates train ModelConfig(compute_dtype="float32") as the JAX tools do: its
+# RoIAlign ("xla") and stem ("xla") are the plain versions, so no hand kernel
+# runs there; an evaluation never runs K5, nor a RoIAlign kernel but its arm's
+GATE_KEYS = {"INT8VAL_JSON": ("results", "deltas_vs_pallas_resident",
+                              "probe_drift_vs_pallas_resident",
+                              "rank_margin_vs_pallas_resident", "confusable", "products",
+                              "frames"),
+             "FASTVAL_JSON": ("results", "deltas", "rank_margin_fast_vs_serving", "confusable",
+                              "products", "frames"),
+             "TRUNKVAL_JSON": ("results", "deltas_vs_float32", "probe_drift_vs_float32",
+                               "rank_margin_vs_float32", "confusable", "products", "frames")}
+
+
+def gate_arm_check(path, counts, roi_kernel):
+    never = ("roi_align_adjoint",) + tuple(k for k in ROI_KERNELS if k != roi_kernel)
+    check_launches(path, counts, GATE_EVAL + (roi_kernel,), never)
+
+
+# what an arm may find still allocated from earlier ones: cuBLAS's workspaces (65 MiB after
+# a gate's training on the H100) stay; one video model's weights alone are 0.197 GiB
+GATE_HELD_BYTES = 128 * 2 ** 20
+
+
+def counted(paths, path_of, check, base):
+    """A wrapper maker for a gate's training or per-arm function: the counts
+    zeroed before each call and read after it into ``paths[path_of(args)]``,
+    with its seconds and peak memory; ``check(path, counts)``.  Each call
+    must find the card holding no more than ``base[0]`` (the gate's start)
+    plus GATE_HELD_BYTES: one full model at a time."""
+    def make(fn):
+        def run(*args, **kw):
+            path = path_of(args)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base[0]
+            if held > GATE_HELD_BYTES:
+                raise SystemExit(f"gates: {path}: {held / 2 ** 20:.0f} MiB still allocated "
+                                 "from earlier arms: a model was not released")
+            torch.cuda.reset_peak_memory_stats()
+            launch_counts(zero=True)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            paths[path] = launch_counts()
+            paths[path + ":s"] = time.perf_counter() - t0
+            paths[path + ":peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(path, paths[path])
+            return out
+        return run
+    return make
+
+
+def run_gate(gate, module, marker, arm_module, arm_name, arm_of, roi_kernel_of, report,
+             paths):
+    """One gate's ``main(GATE_ARGS)`` in process on the card: its training
+    and each arm counted (``arm_of(args)`` names the arm from the arm
+    function's arguments), its JSON line parsed and checked (the JAX tool's
+    keys, top-1 values in [0, 1]), the card's memory back to what it held
+    before."""
+    from tools import _synth_train_torch as st
+
+    base = [torch.cuda.memory_allocated()]
+    train = counted(paths, lambda _: f"gate_train_{gate}",
+                    lambda path, c: check_launches(path, c, (), tuple(KERNELS)), base)
+    arm = counted(paths, lambda a: f"gate_{gate}_{arm_of(a)}",
+                  lambda path, c: gate_arm_check(path, c, roi_kernel_of(path.split("_", 2)[2])),
+                  base)
+    with patched(st, "train_synthetic_phase1", train), patched(arm_module, arm_name, arm):
+        _, lines, secs = run_cli(module.main, GATE_ARGS)
+    [line] = [ln for ln in lines if ln.startswith(marker + " ")]
+    payload = json.loads(line[len(marker) + 1:])
+    tops = [v for arm in payload["results"].values()
+            for v in (arm.values() if gate == "fast" else
+                      [x for ds in arm.values() for x in ds.values()])]
+    if tuple(payload) != GATE_KEYS[marker] or not tops \
+            or not all(0.0 <= v <= 1.0 for v in tops):
+        raise SystemExit(f"gates: {gate}: {marker} keys {list(payload)}, top-1 {tops}")
+    held = torch.cuda.memory_allocated() - base[0]
+    if held > GATE_HELD_BYTES:
+        raise SystemExit(f"gates: {gate}: {held / 2 ** 20:.0f} MiB still allocated after it")
+    arms = [k[len(f"gate_{gate}_"):] for k in paths
+            if k.startswith(f"gate_{gate}_") and ":" not in k]
+    log(f"gates: {gate}: tools/{module.__name__.split('.')[-1]}.py {' '.join(GATE_ARGS)} in "
+        f"{secs:.1f} s; training {paths[f'gate_train_{gate}:s']:.1f} s, peak "
+        f"{paths[f'gate_train_{gate}:peak_gib']:.2f} GiB, launches "
+        f"{paths[f'gate_train_{gate}']}; arms " + "; ".join(
+            f"{a} {paths[f'gate_{gate}_{a}:s']:.1f} s, peak "
+            f"{paths[f'gate_{gate}_{a}:peak_gib']:.2f} GiB, launches "
+            f"{paths[f'gate_{gate}_{a}']}" for a in arms))
+    log(f"gates: {line}")
+    report[gate] = {"seconds": secs, "payload": payload,
+                    "train_s": paths[f"gate_train_{gate}:s"],
+                    "train_peak_gib": paths[f"gate_train_{gate}:peak_gib"],
+                    "arms": {a: {"s": paths[f"gate_{gate}_{a}:s"],
+                                 "peak_gib": paths[f"gate_{gate}_{a}:peak_gib"]}
+                             for a in arms}}
+
+
+def phase_gates(dev):
+    """Phase 11: the five serving-profile validation tools in process on the
+    card (their fixtures and logs in a temporary directory): the int8, fast
+    and trunk-dtype gates at GATE_ARGS, then the clamp measurement with
+    --detector."""
+    from tools import measure_roi_clamp_torch as clamp
+    from tools import validate_fast_profile_torch as vf
+    from tools import validate_int8_torch as vi
+    from tools import validate_trunk_dtype_torch as vt
+    from tools import _synth_train_torch as st
+
+    t_phase = time.perf_counter()
+    paths, report = {}, {}
+    old_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp
+        try:
+            # harness_arm(vcfg, trained, tag, ...), profile_arm(name, vcfg, ...)
+            run_gate("int8", vi, "INT8VAL_JSON", st, "harness_arm", lambda a: a[2],
+                     EVAL_ROI_KERNEL.get, report, paths)
+            run_gate("fast", vf, "FASTVAL_JSON", vf, "profile_arm", lambda a: a[0],
+                     lambda _: "roi_align", report, paths)
+            run_gate("trunk", vt, "TRUNKVAL_JSON", st, "harness_arm", lambda a: a[2],
+                     lambda _: "roi_align", report, paths)
+        finally:
+            tempfile.tempdir = old_tmp
+    launch_counts(zero=True)
+    _, lines, secs = run_cli(clamp.main, ["--detector"])
+    paths["gate_clamp"] = launch_counts()
+    check_launches("gate_clamp", paths["gate_clamp"], ("fused_stem", "roi_align"),
+                   tuple(k for k in KERNELS if k not in ("fused_stem", "roi_align")))
+    [det] = [ln for ln in lines if ln.startswith("detector detections")]
+    fracs = [ln for ln in lines if "clamp fraction" in ln]
+    if len(fracs) != 4 or len([ln for ln in lines if " clamps (footprint " in ln]) != 8:
+        raise SystemExit(f"gates: clamp: unexpected output {lines}")
+    for ln in lines:
+        log(f"gates: clamp: {ln}")
+    log(f"gates: clamp: tools/measure_roi_clamp_torch.py --detector in {secs:.1f} s, launches "
+        f"{paths['gate_clamp']}")
+    report["clamp"] = {"seconds": secs, "lines": lines}
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"gates: phase 11 took {report['seconds']:.1f} s")
+    return {k: v for k, v in paths.items() if ":" not in k}, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3407,6 +3569,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     export_launches, export_report = phase_export(dev)
     paths.update(export_launches)
+    torch.cuda.empty_cache()
+    gate_launches, gate_report = phase_gates(dev)
+    paths.update(gate_launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3426,7 +3591,7 @@ def main() -> int:
         "train_losses": train_losses, "train_pallas_step_ms": pallas_step_ms,
         "train_pallas_peak_gib": pallas_peak_gb, "train_pallas_losses": pallas_losses,
         "seam": seam_report, "serve": serve_report, "cli": cli_report, "dist": dist_report,
-        "ablate": ablate_report, "export": export_report}))
+        "ablate": ablate_report, "export": export_report, "gates": gate_report}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))

@@ -236,8 +236,8 @@ class TrainConfig:
     # Global-norm gradient clipping; 0 = off (reference parity — the
     # reference never clips, but it also never trains from scratch:
     # without an ImageNet backbone the mask branch diverges at full
-    # geometry (measured in tools/validate_fast_profile.py).  Set e.g. 5.0
-    # for from-scratch runs.
+    # geometry, which is why the gates' synthetic training clips at 5.0,
+    # tools/_synth_train_torch.py).  Set e.g. 5.0 for from-scratch runs.
     clip_grad_norm: float = 0.0
     save_epochs: int = 2
     # Mid-epoch checkpoint every N optimizer steps into the overwriting

@@ -24,12 +24,13 @@ import torch
 import torch.distributed as dist
 
 
-def make_mesh(data: int = -1, model: int = 1, device_type=None):
+def make_mesh(data: int = -1, model: int = 1, device_type: str = "cuda"):
     """The (data, model) mesh over every rank of the process group (rank =
-    data index x model + model index), on ``device_type`` ("cuda" where
-    there is a card, else "cpu").  ``data=-1`` takes the ranks that
-    ``model`` leaves.  Needs the process group (``initialize_distributed``
-    under ``SEAM_MULTIHOST=1``, or ``init_process_group``)."""
+    data index x model + model index), on ``device_type``: the card unless
+    the caller asks for "cpu" (without a card "cuda" raises).  ``data=-1``
+    takes the ranks that ``model`` leaves.  Needs the process group
+    (``initialize_distributed`` under ``SEAM_MULTIHOST=1``, or
+    ``init_process_group``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -41,8 +42,9 @@ def make_mesh(data: int = -1, model: int = 1, device_type=None):
         data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} does not cover the {n} ranks")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device (torch.cuda.is_available() is False); "
+                           "pass device_type='cpu' for a mesh of CPU ranks")
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
 
 

@@ -194,3 +194,21 @@ def test_backend_rule_refuses_nccl_where_ranks_share_a_card(monkeypatch):
 def test_make_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="initialize_distributed"):
         port_mesh.make_mesh(data=2)
+
+
+def test_make_mesh_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """With a process group, the mesh is CUDA's unless the caller asks for the
+    CPU; without a card that raises instead of falling back to the CPU."""
+    import torch.distributed.device_mesh as dm
+
+    made = []
+    monkeypatch.setattr(port_mesh.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(port_mesh.dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dm, "init_device_mesh", lambda dev, shape, **kw: made.append((dev, shape)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_mesh.make_mesh(data=2)
+    port_mesh.make_mesh(data=2, device_type="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    port_mesh.make_mesh(data=1, model=2)
+    assert made == [("cpu", (2, 1)), ("cuda", (1, 2))]

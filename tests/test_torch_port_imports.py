@@ -90,3 +90,25 @@ def test_export_and_parity_tools_import_without_jax_or_cv2():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_gate_tools_import_without_jax_or_cv2():
+    """The five serving-profile gate tools (``tools/_synth_train_torch.py``,
+    ``validate_int8_torch.py``, ``validate_fast_profile_torch.py``,
+    ``validate_trunk_dtype_torch.py``, ``measure_roi_clamp_torch.py``) import,
+    and the gates build their parsers, with jax, cv2 and the JAX package
+    blocked."""
+    tools = ("tools._synth_train_torch", "tools.validate_int8_torch",
+             "tools.validate_fast_profile_torch", "tools.validate_trunk_dtype_torch",
+             "tools.measure_roi_clamp_torch")
+    script = _SCRIPT.replace('for name in names + ["chip_smoke"]:',
+                             f"for name in {tools!r}:")
+    assert script != _SCRIPT
+    script += ("for name in ('validate_int8_torch', 'validate_fast_profile_torch', "
+               "'validate_trunk_dtype_torch'):\n"
+               "    sys.modules['tools.' + name].build_argparser().parse_args([])\n"
+               "import tools.measure_roi_clamp_torch as clamp\n"
+               "assert clamp.clamp_mask(clamp.anchor_distribution(50, 0.2), 'cpu').shape == (50,)\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

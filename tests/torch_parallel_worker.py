@@ -130,7 +130,7 @@ def case_collectives(inputs):
 def case_score_sharded(inputs):
     from seam_match_rcnn_tpu_torch.eval.gallery import score_matrix_sharded
 
-    mesh = make_mesh(data=1, model=WORLD)
+    mesh = make_mesh(data=1, model=WORLD, device_type="cpu")
     return score_matrix_sharded(*(inputs[k] for k in ("street", "shop", "w", "b")), mesh,
                                 axis="model", device="cpu")
 
@@ -164,7 +164,7 @@ def case_seam_rows_sharded(inputs):
     mp_, ta = heads_from(inputs["heads"])
     opt = head_optimizer(list(mp_.parameters()) + list(ta.parameters()), inputs["lr"])
     step = make_seam_head_step(mp_, ta, opt, frames_per_product=inputs["frames"], n_frames=2,
-                               mesh=make_mesh(data=WORLD))
+                               mesh=make_mesh(data=WORLD, device_type="cpu"))
     losses = step(as_tensors(local))
     state = numpy_state(mp_, ta)
     return {"losses": {k: float(v) for k, v in losses.items()}, "digest": digest(flat(state)),
@@ -226,7 +226,7 @@ def _global_step(inputs, kind, empty_ranks):
     gather = lambda a: C.all_gather(torch.from_numpy(a)).numpy()  # noqa: E731
     batch = _local_product_batch(case["local"][rank], rank in empty_ranks)
     batch = global_products(batch, rank, WORLD, case["products"], case["frames"], gather)
-    step, mp_, ta = _head_step(inputs, kind, make_mesh(data=WORLD))
+    step, mp_, ta = _head_step(inputs, kind, make_mesh(data=WORLD, device_type="cpu"))
     losses = step(as_tensors(batch))
     state = flat(numpy_state(mp_, ta))
     before = flat(numpy_state(*heads_from(inputs["heads"])))
@@ -288,7 +288,7 @@ def case_epoch_mesh(inputs):
     for kind in ("movingfashion", "multidf2"):
         data, recorded = inputs["epoch"][kind][rank]
         mp_, ta = heads_from(inputs["heads"])
-        mesh = make_mesh(data=WORLD)
+        mesh = make_mesh(data=WORLD, device_type="cpu")
         if kind == "multidf2":
             step = make_mdf2_head_step(ta, head_optimizer(ta.parameters(), inputs["lr"]),
                                        mesh=mesh)
@@ -439,7 +439,7 @@ def case_phase1(inputs):
     one-process steps on the whole batch and holds each against them (the
     ranks' digests show that rank 1 holds the same)."""
     lr, batches, rank = inputs["lr"], inputs["batches"], dist.get_rank()
-    mesh = make_mesh(data=WORLD)
+    mesh = make_mesh(data=WORLD, device_type="cpu")
     ok = phase1_run(batches, lr, mesh)
     out = {"ok": {"losses": ok["losses"], "digests": [digest(st) for st in ok["states"][1:]],
                   "momentum": sum(k.startswith("momentum:") for k in ok["states"][-1])}}
@@ -505,7 +505,8 @@ def case_runner(inputs):
     kw = dict(chunk=8, with_roi_features=True)
     with torch.no_grad():
         one, one_dev = InferenceRunner(model, **kw).run(images)
-        mesh, mesh_dev = InferenceRunner(model, mesh=make_mesh(data=WORLD), **kw).run(images)
+        mesh, mesh_dev = InferenceRunner(
+            model, mesh=make_mesh(data=WORLD, device_type="cpu"), **kw).run(images)
     return {"one": one, "mesh": mesh, "one_dev": one_dev["roi_features"].numpy(),
             "mesh_dev": mesh_dev["roi_features"].numpy()}
 
