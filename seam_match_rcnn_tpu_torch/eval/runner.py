@@ -29,6 +29,7 @@ from ..models.transform import (batch_images, device_batch_images, host_batch_im
 from ..ops.masks import paste_masks
 from ..parallel.collectives import all_gather, gather_objects
 from ..parallel.mesh import axis_group, axis_index, axis_size
+from ..utils.profiling import annotate
 
 
 def _chunk_plan(n: int, chunk: int):
@@ -96,18 +97,20 @@ class InferenceRunner:
             batch = device_batch_images
         else:
             batch = batch_images
-        return batch(images, self.model.cfg.transform, self.device)
+        with annotate("seam.ingest"):
+            return batch(images, self.model.cfg.transform, self.device)
 
     def _forward(self, pixels: torch.Tensor, sizes: np.ndarray) -> Dict[str, torch.Tensor]:
-        out = self.model.inference(pixels, torch.as_tensor(sizes, device=self.device),
-                                   with_masks=self.with_masks, with_match=self.with_match,
-                                   with_roi_features=True)
-        roi = out["roi_features"] if self.with_roi else out.pop("roi_features")
-        if self.with_aggr:
-            b, d = roi.shape[:2]
-            out["aggr_features"] = self.model.aggregator_descriptors(
-                roi.reshape((b * d,) + roi.shape[2:])).reshape(b, d, -1)
-        return out
+        with annotate("seam.forward"):
+            out = self.model.inference(pixels, torch.as_tensor(sizes, device=self.device),
+                                       with_masks=self.with_masks, with_match=self.with_match,
+                                       with_roi_features=True)
+            roi = out["roi_features"] if self.with_roi else out.pop("roi_features")
+            if self.with_aggr:
+                b, d = roi.shape[:2]
+                out["aggr_features"] = self.model.aggregator_descriptors(
+                    roi.reshape((b * d,) + roi.shape[2:])).reshape(b, d, -1)
+            return out
 
     def __call__(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """images: HWC arrays in [0, 1] (or uint8 under the device ingest).
@@ -125,53 +128,55 @@ class InferenceRunner:
         (each chunk's rows written to its images' places): phase-2 training
         gathers its rows' RoI features there.  ``device_keys`` defaults to
         ("roi_features",) when the runner exports them, else ()."""
-        if device_keys is None:
-            device_keys = ("roi_features",) if self.with_roi else ()
-        group = axis_group(self.mesh, "data")
-        ranks, rank = axis_size(self.mesh, "data"), axis_index(self.mesh, "data")
-        results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
-        dev: Dict[str, torch.Tensor] = {}
-        for bucket in self.batches(images):
-            n = bucket.pixels.shape[0]
-            plan = (_chunk_plan(n, self.chunk) if group is None
-                    else [(s, self.chunk) for s in range(0, n, self.chunk)])
-            for s, size in plan:
-                e = min(s + size, n)  # the chunk's images; past them, padding
-                lo, hi = s + rank * size // ranks, s + (rank + 1) * size // ranks
-                pixels, sizes = bucket.pixels[lo:min(hi, n)], bucket.sizes[lo:min(hi, n)]
-                if hi > n:
-                    pad = hi - max(lo, n)
-                    pixels = torch.cat([pixels, pixels.new_zeros((pad,) + pixels.shape[1:])])
-                    sizes = np.concatenate([sizes, np.repeat(bucket.sizes[-1:], pad, 0)])
-                out = self._forward(pixels, sizes)
-                for k in device_keys:
-                    if k not in out:
-                        raise ValueError(f"run: device key {k!r} is not an output of this "
-                                         f"runner ({sorted(out)})")
-                    v = out.pop(k)
-                    if group is not None:
-                        v = all_gather(v, group).flatten(0, 1)[:e - s]
-                    if k not in dev:
-                        dev[k] = torch.empty((len(images),) + v.shape[1:], dtype=v.dtype,
-                                             device=v.device)
-                    dev[k][torch.as_tensor(bucket.indices[s:e], device=v.device)] = v
-                masks = out.pop("masks") if self.paste_full_masks and "masks" in out else None
-                host = {k: v.cpu().numpy() for k, v in out.items()}
-                for j in range(min(hi, n) - lo):
-                    i = lo + j
-                    r = {k: v[j] for k, v in host.items()}
-                    r["boxes"] = resize_boxes_back(r["boxes"], tuple(bucket.sizes[i]),
-                                                   tuple(bucket.orig_sizes[i]))
-                    if masks is not None:
-                        # torchvision's postprocess order: the boxes back to
-                        # original coordinates first, then the paste there
-                        oh, ow = map(int, bucket.orig_sizes[i])
-                        r["masks"] = paste_masks(masks[j], torch.as_tensor(
-                            r["boxes"], device=masks.device), oh, ow).cpu().numpy()
-                    results[bucket.indices[i]] = r
-        if group is not None:
-            for part in gather_objects({i: r for i, r in enumerate(results) if r is not None},
-                                       group):
-                for i, r in part.items():
-                    results[i] = r
-        return results, dev
+        with annotate("seam.call"):
+            if device_keys is None:
+                device_keys = ("roi_features",) if self.with_roi else ()
+            group = axis_group(self.mesh, "data")
+            ranks, rank = axis_size(self.mesh, "data"), axis_index(self.mesh, "data")
+            results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
+            dev: Dict[str, torch.Tensor] = {}
+            for bucket in self.batches(images):
+                n = bucket.pixels.shape[0]
+                plan = (_chunk_plan(n, self.chunk) if group is None
+                        else [(s, self.chunk) for s in range(0, n, self.chunk)])
+                for s, size in plan:
+                    e = min(s + size, n)  # the chunk's images; past them, padding
+                    lo, hi = s + rank * size // ranks, s + (rank + 1) * size // ranks
+                    pixels, sizes = bucket.pixels[lo:min(hi, n)], bucket.sizes[lo:min(hi, n)]
+                    if hi > n:
+                        pad = hi - max(lo, n)
+                        pixels = torch.cat([pixels, pixels.new_zeros((pad,) + pixels.shape[1:])])
+                        sizes = np.concatenate([sizes, np.repeat(bucket.sizes[-1:], pad, 0)])
+                    out = self._forward(pixels, sizes)
+                    for k in device_keys:
+                        if k not in out:
+                            raise ValueError(f"run: device key {k!r} is not an output of this "
+                                             f"runner ({sorted(out)})")
+                        v = out.pop(k)
+                        if group is not None:
+                            v = all_gather(v, group).flatten(0, 1)[:e - s]
+                        if k not in dev:
+                            dev[k] = torch.empty((len(images),) + v.shape[1:], dtype=v.dtype,
+                                                 device=v.device)
+                        dev[k][torch.as_tensor(bucket.indices[s:e], device=v.device)] = v
+                    masks = out.pop("masks") if self.paste_full_masks and "masks" in out else None
+                    with annotate("seam.readback"):
+                        host = {k: v.cpu().numpy() for k, v in out.items()}
+                        for j in range(min(hi, n) - lo):
+                            i = lo + j
+                            r = {k: v[j] for k, v in host.items()}
+                            r["boxes"] = resize_boxes_back(r["boxes"], tuple(bucket.sizes[i]),
+                                                           tuple(bucket.orig_sizes[i]))
+                            if masks is not None:
+                                # torchvision's postprocess order: the boxes back to
+                                # original coordinates first, then the paste there
+                                oh, ow = map(int, bucket.orig_sizes[i])
+                                r["masks"] = paste_masks(masks[j], torch.as_tensor(
+                                    r["boxes"], device=masks.device), oh, ow).cpu().numpy()
+                            results[bucket.indices[i]] = r
+            if group is not None:
+                for part in gather_objects({i: r for i, r in enumerate(results) if r is not None},
+                                           group):
+                    for i, r in part.items():
+                        results[i] = r
+            return results, dev

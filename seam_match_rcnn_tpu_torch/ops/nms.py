@@ -24,6 +24,10 @@ matrix and the valid mask as explicit operands: the public
 ``torch._higher_order_ops.while_loop`` lifts closures by compiling the call
 with Dynamo every time, which on the H100 cost 9-15 s for the first call
 of a process and up to 2.3 ms a call after it (``tools/time_torch_nms.py``).
+
+Under a profiler each call is a ``seam.nms`` span, and the host counts its
+calls (``nms.calls``) and eager steps (``nms.steps``), each step one host
+read-back (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Tuple
 import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
+from ..utils.profiling import annotate, count
 from .boxes import box_iou
 
 _NEG_INF = -1e10
@@ -44,6 +49,7 @@ def _not_done(kept, done, conflict_f, svalid):
 
 def _step(kept, done, conflict_f, svalid):
     """One Jacobi step: (kept, done) -> (the new kept, whether it equals kept)."""
+    count("nms.steps")
     hit = torch.bmm(conflict_f, kept.to(torch.float32)[..., None])[..., 0] > 0
     new = svalid & ~hit
     return new, (new == kept).all()
@@ -59,6 +65,7 @@ def _kept_sorted(sboxes: torch.Tensor, svalid: torch.Tensor, iou_threshold: floa
     conflict = (box_iou(sboxes, sboxes) > iou_threshold) & earlier
     conflict_f = conflict.to(torch.float32)
     done = torch.zeros((), dtype=torch.bool, device=sboxes.device)
+    count("nms.calls")
     kept, _ = while_loop_op(_not_done, _step, (svalid, done), (conflict_f, svalid))
     return kept
 
@@ -75,9 +82,10 @@ def nms_kept_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: floa
                   valid: torch.Tensor) -> torch.Tensor:
     """[M, N, 4] boxes, [M, N] scores -> [M, N] survivor mask in ORIGINAL order.
     ``valid`` False entries are never kept and never suppress."""
-    order, sboxes, svalid = _sort(boxes, scores, valid)
-    kept = _kept_sorted(sboxes, svalid, iou_threshold)
-    return torch.zeros_like(kept).scatter(-1, order, kept)
+    with annotate("seam.nms"):
+        order, sboxes, svalid = _sort(boxes, scores, valid)
+        kept = _kept_sorted(sboxes, svalid, iou_threshold)
+        return torch.zeros_like(kept).scatter(-1, order, kept)
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
@@ -85,14 +93,15 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     """[M, N, 4], [M, N] -> (indices [M, max_output] int64 into N, score
     ordered and -1 padded; mask [M, max_output])."""
     m = scores.shape[0]
-    order, sboxes, svalid = _sort(boxes, scores, valid)
-    kept = _kept_sorted(sboxes, svalid, iou_threshold)
-    rank = torch.cumsum(kept.to(torch.int64), dim=-1) - 1
-    slot = torch.where(kept & (rank < max_output), rank, torch.full_like(rank, max_output))
-    out = torch.full((m, max_output + 1), -1, dtype=torch.int64, device=boxes.device)
-    out.scatter_(-1, slot, torch.where(slot < max_output, order, torch.full_like(order, -1)))
-    indices = out[:, :max_output]
-    return indices, indices >= 0
+    with annotate("seam.nms"):
+        order, sboxes, svalid = _sort(boxes, scores, valid)
+        kept = _kept_sorted(sboxes, svalid, iou_threshold)
+        rank = torch.cumsum(kept.to(torch.int64), dim=-1) - 1
+        slot = torch.where(kept & (rank < max_output), rank, torch.full_like(rank, max_output))
+        out = torch.full((m, max_output + 1), -1, dtype=torch.int64, device=boxes.device)
+        out.scatter_(-1, slot, torch.where(slot < max_output, order, torch.full_like(order, -1)))
+        indices = out[:, :max_output]
+        return indices, indices >= 0
 
 
 def batched_nms_padded(boxes: torch.Tensor, scores: torch.Tensor, idxs: torch.Tensor,

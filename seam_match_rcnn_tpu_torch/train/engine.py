@@ -51,6 +51,7 @@ from ..models.transform import batch_images
 from ..parallel.collectives import all_gather, lockstep
 from ..parallel.mesh import reduce_scalars
 from ..utils.logging import MetricLogger, ScalarWriter
+from ..utils.profiling import annotate
 from .seam import global_products, select_rows_host
 
 
@@ -93,21 +94,22 @@ def bucket_batches(model, images: List[np.ndarray], targets: List[Dict], g_max: 
                    device) -> List[Dict]:
     """One batch dict per canvas bucket, on ``device``, with each image's GT
     boxes scaled by its (x, y) resize ratios."""
-    out = []
-    for bucket in batch_images(images, model.cfg.transform, device):
-        ratios = bucket.sizes.astype(np.float64) / bucket.orig_sizes  # (ry, rx) per image
-        scaled = []
-        for i, (ry, rx) in zip(bucket.indices, ratios):
-            t = dict(targets[i])
-            t["boxes"] = (np.asarray(t["boxes"], np.float64).reshape(-1, 4)
-                          * np.asarray([rx, ry, rx, ry])).astype(np.float32)
-            scaled.append(t)
-        # empty targets still carry (0, S, S) crops, so the crop size is known
-        gt = pad_targets(scaled, g_max, scaled[0]["mask_crops"].shape[-1])
-        out.append({"images": bucket.pixels,
-                    "sizes": torch.as_tensor(bucket.sizes, device=device),
-                    "gt": {k: torch.as_tensor(v, device=device) for k, v in gt.items()}})
-    return out
+    with annotate("seam.ingest"):
+        out = []
+        for bucket in batch_images(images, model.cfg.transform, device):
+            ratios = bucket.sizes.astype(np.float64) / bucket.orig_sizes  # (ry, rx) per image
+            scaled = []
+            for i, (ry, rx) in zip(bucket.indices, ratios):
+                t = dict(targets[i])
+                t["boxes"] = (np.asarray(t["boxes"], np.float64).reshape(-1, 4)
+                              * np.asarray([rx, ry, rx, ry])).astype(np.float32)
+                scaled.append(t)
+            # empty targets still carry (0, S, S) crops, so the crop size is known
+            gt = pad_targets(scaled, g_max, scaled[0]["mask_crops"].shape[-1])
+            out.append({"images": bucket.pixels,
+                        "sizes": torch.as_tensor(bucket.sizes, device=device),
+                        "gt": {k: torch.as_tensor(v, device=device) for k, v in gt.items()}})
+        return out
 
 
 def _bucket_step(step_fn, batches: List[Dict], generator: torch.Generator):

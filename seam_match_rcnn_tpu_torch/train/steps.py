@@ -37,6 +37,7 @@ import torch
 from ..models.matchrcnn import MatchRCNN
 from ..parallel.collectives import reduce_dict
 from ..parallel.mesh import axis_group
+from ..utils.profiling import annotate
 from .optim import SGD
 
 
@@ -63,21 +64,25 @@ class Phase1Trainer:
         ``generator``, or take ``draws`` (one dict per bucket).  Returns the
         detached losses of the (global) batch, with their sum as "loss",
         equal on every rank."""
-        self.optimizer.zero_grad()
-        losses = self.model.training_losses(batches, generator, draws, group=self.group)
-        total = sum(losses.values())
-        total.backward()
-        self.optimizer.step()
-        out = {k: v.detach() for k, v in losses.items()}
-        if self.group is None:
-            out["loss"] = total.detach()
+        with annotate("seam.step"):
+            self.optimizer.zero_grad()
+            with annotate("seam.forward"):
+                losses = self.model.training_losses(batches, generator, draws, group=self.group)
+            total = sum(losses.values())
+            with annotate("seam.backward"):
+                total.backward()
+            with annotate("seam.optimizer"):
+                self.optimizer.step()
+            out = {k: v.detach() for k, v in losses.items()}
+            if self.group is None:
+                out["loss"] = total.detach()
+                return out
+            # the detector losses are this rank's shares: their sums are the
+            # global batch's; the match loss is already the global one
+            out.update(reduce_dict({k: v for k, v in out.items() if k != "loss_match"},
+                                   self.group, average=False))
+            out["loss"] = sum(out.values())
             return out
-        # the detector losses are this rank's shares: their sums are the
-        # global batch's; the match loss is already the global one
-        out.update(reduce_dict({k: v for k, v in out.items() if k != "loss_match"},
-                               self.group, average=False))
-        out["loss"] = sum(out.values())
-        return out
 
 
 Grads = List[Optional[torch.Tensor]]

@@ -88,17 +88,3 @@ def test_phase2_mdf2_row_selection_copy_agrees():
                 if line.strip() not in ("from ..ops.rle import box_iou_xywh",
                                         "from ..eval.multidf2 import box_iou_xywh")]
     assert body(engine._best_iou_rows_mdf2) == body(jax_engine._best_iou_rows_mdf2)
-
-
-def test_step_timer_copy_agrees():
-    import inspect
-
-    from seam_match_rcnn_tpu.utils.profiling import StepTimer as JaxStepTimer
-    from seam_match_rcnn_tpu_torch.utils.profiling import StepTimer
-
-    assert inspect.getsource(StepTimer) == inspect.getsource(JaxStepTimer)
-    timer = StepTimer()
-    for _ in range(2):
-        with timer.phase("compute"):
-            pass
-    assert set(timer.summary()) == {"compute"} and timer.counts["compute"] == 2
