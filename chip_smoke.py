@@ -16,7 +16,10 @@ Phases, one line each:
                K1 also on a canvas of mixed-size images from the port's
                batching, with a zero and a drawn FrozenBN shift (its time
                within 1.5x of dense input, and the values it recomputes),
-               and K5 called twice on the same inputs (equal bytes);
+               and K5 called twice on the same inputs (equal bytes), and
+               K8 at each distinct call of a batch-11 forward of the body,
+               forward and backward, bit-equal to the op chain, with the
+               totals of a forward's 48 calls;
   3. slice   - the serving path at full width (ResNet-50-FPN, 4000
                proposals, 800x1344 canvases, chunk 11) with seeded random
                weights: a gallery of 16 synthetic shop images, then
@@ -205,7 +208,8 @@ from seam_match_rcnn_tpu_torch.eval.runner import InferenceRunner
 from seam_match_rcnn_tpu_torch.models.layers import FrozenBatchNorm2d
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.models.transform import batch_images, normalize
-from seam_match_rcnn_tpu_torch.ops import cuda_kernels, cuda_roi_align, cuda_stem, native, rle
+from seam_match_rcnn_tpu_torch.ops import (cuda_epilogue, cuda_kernels, cuda_roi_align, cuda_stem,
+                                           native, rle)
 from seam_match_rcnn_tpu_torch.ops.masks import paste_masks
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
@@ -243,16 +247,22 @@ KERNELS = {
     "roi_align_patch_int8": ("seam_match_rcnn_tpu_torch/csrc/roi_align_patch.cu",
                              "seam_match_rcnn_tpu/ops/pallas_roi_align.py:387",
                              cuda_roi_align.roi_align_patch_int8),
+    # K8 replaces no TPU kernel: XLA fused these elementwise ops into the conv there
+    "bn_epilogue": ("seam_match_rcnn_tpu_torch/csrc/conv_epilogue.cu", "none",
+                    cuda_epilogue.bn_epilogue),
+    "bn_epilogue_grad": ("seam_match_rcnn_tpu_torch/csrc/conv_epilogue.cu", "none",
+                         cuda_epilogue.bn_epilogue_grad),
 }
-SERVING_PATH = ("fused_stem", "roi_align", "nlb_aggregate", "pairwise_scores")
-TRAIN_PATH = ("fused_stem", "roi_align", "roi_align_adjoint")
+K8 = ("bn_epilogue", "bn_epilogue_grad")  # every path through the backbone on the card
+SERVING_PATH = ("fused_stem", "roi_align", "nlb_aggregate", "pairwise_scores", "bn_epilogue")
+TRAIN_PATH = ("fused_stem", "roi_align", "roi_align_adjoint") + K8
 EVAL_ROI_KERNEL = {"pallas_resident": "roi_align", "pallas": "roi_align_patch",
                    "pallas_int8": "roi_align_patch_int8"}
-EVAL_PATH = ("fused_stem", "nlb_aggregate", "pairwise_scores")
-TRAIN_PALLAS_PATH = ("fused_stem", "roi_align_patch", "roi_align_adjoint")
-SEAM_PATH = ("fused_stem", "roi_align")  # the frozen detector's inference
+EVAL_PATH = ("fused_stem", "nlb_aggregate", "pairwise_scores", "bn_epilogue")
+TRAIN_PALLAS_PATH = ("fused_stem", "roi_align_patch", "roi_align_adjoint") + K8
+SEAM_PATH = ("fused_stem", "roi_align", "bn_epilogue")  # the frozen detector's inference
 SEAM_IDLE = ("nlb_aggregate", "pairwise_scores", "roi_align_adjoint")  # no K3, K4, K5 there
-SERVE_DETECT_PATH = ("fused_stem", "roi_align")  # detect: no descriptors, so no K3 or K4
+SERVE_DETECT_PATH = ("fused_stem", "roi_align", "bn_epilogue")  # no descriptors: no K3 or K4
 SERVE_IDLE = ("roi_align_adjoint", "roi_align_patch", "roi_align_patch_int8")  # no K5-K7
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
@@ -565,6 +575,7 @@ def phase_kernels(dev, results):
         raise SystemExit("kernels: roi_align_adjoint gave different bytes on the same inputs")
 
     phase_kernels_patch(dev, rng, gen, results)
+    phase_kernels_epilogue(dev, gen, results)
 
     # K3 at S in {1, 64}, T = 10, and S = 7, T = 32 with a track that has no
     # valid frame, with a non-zero W_z
@@ -635,6 +646,76 @@ def phase_kernels(dev, results):
                 f"library {lib}, bound {c['bound_ms']:.4f} ms{quant}")
         if not r["ok"]:
             raise SystemExit(f"kernels: {name} disagrees with its plain version")
+
+
+# K8's distinct calls in a forward of the body on an 800x1344 canvas:
+# (C, H, W, residual kind, calls), 48 calls in all (every one with ReLU)
+BODY_EPILOGUES = (
+    (64, 200, 336, "none", 6), (256, 200, 336, "raw", 1), (256, 200, 336, "identity", 2),
+    (128, 200, 336, "none", 1), (128, 100, 168, "none", 7), (512, 100, 168, "raw", 1),
+    (512, 100, 168, "identity", 3), (256, 100, 168, "none", 1), (256, 50, 84, "none", 11),
+    (1024, 50, 84, "raw", 1), (1024, 50, 84, "identity", 5), (512, 50, 84, "none", 1),
+    (512, 25, 42, "none", 5), (2048, 25, 42, "raw", 1), (2048, 25, 42, "identity", 2))
+RESIDUAL_KIND = {"none": cuda_epilogue.NONE, "identity": cuda_epilogue.IDENTITY,
+                 "raw": cuda_epilogue.RAW}
+
+
+def bits_equal(got, want) -> bool:
+    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[want.dtype]
+    return got.dtype == want.dtype and torch.equal(got.view(as_int), want.view(as_int))
+
+
+def phase_kernels_epilogue(dev, gen, results):
+    """K8 at every distinct call of a batch-11 bf16 serving forward of the
+    body (layer1 to layer4), forward and backward, each held bit for bit to
+    the plain chain, with times, the chain's time and the byte bound (each
+    tensor read or written once); the totals weight each call by how often a
+    forward makes it."""
+    fwd, bwd, all_ok = [], [], True
+    for c, h, w, kind, calls in BODY_EPILOGUES:
+        mode = RESIDUAL_KIND[kind]
+        randn = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa
+        y = randn(11, c, h, w)
+        sc, sh = (0.5 + torch.rand(c, generator=gen, device=dev)).to(torch.bfloat16), randn(c)
+        res = randn(11, c, h, w) if mode != cuda_epilogue.NONE else None
+        sr, hr = (sc.flip(0), sh.flip(0)) if mode == cuda_epilogue.RAW else (None, None)
+        args = (y, sc, sh, res, sr, hr, True)
+        out = cuda_epilogue.bn_epilogue(*args)
+        ok = bits_equal(out, cuda_epilogue.bn_epilogue_plain(*args))
+        ms = median_ms(lambda: cuda_epilogue.bn_epilogue(*args), 20)
+        pms = median_ms(lambda: cuda_epilogue.bn_epilogue_plain(*args), 20)
+        b_ms, b_by = bound(nbytes(*[t for t in args[:6] if t is not None], out), 0, "bf16")
+        shape = f"[11,{c},{h},{w}] bf16 {kind}"
+        fwd.append(dict(shape=shape, calls=calls, max_abs_err=0.0 if ok else float("inf"),
+                        tol="bit-equal", ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
+                        bound_by=b_by))
+        all_ok &= ok
+        # the backward from out's gradient
+        g = randn(11, c, h, w)
+        gargs = (g, out, sc, sr, mode, True)
+        got = cuda_epilogue.bn_epilogue_grad(*gargs)
+        want = cuda_epilogue.bn_epilogue_grad_plain(*gargs)
+        ok = bits_equal(got[0], want[0]) and (mode == cuda_epilogue.NONE
+                                              or bits_equal(got[1], want[1]))
+        ms = median_ms(lambda: cuda_epilogue.bn_epilogue_grad(*gargs), 20)
+        pms = median_ms(lambda: cuda_epilogue.bn_epilogue_grad_plain(*gargs), 20)
+        outs = got if mode != cuda_epilogue.NONE else got[:1]
+        b_ms, b_by = bound(nbytes(g, out, sc, *[t for t in (sr,) if t is not None], *outs), 0,
+                           "bf16")
+        bwd.append(dict(shape=shape, calls=calls, max_abs_err=0.0 if ok else float("inf"),
+                        tol="bit-equal", ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
+                        bound_by=b_by))
+        all_ok &= ok
+        del y, res, out, g, got, want, args, gargs
+    for name, cases in (("bn_epilogue", fwd), ("bn_epilogue_grad", bwd)):
+        total = {k: sum(c[k] * c["calls"] for c in cases) for k in ("ms", "plain_ms", "bound_ms")}
+        log(f"kernels: {name}: a batch-11 forward's 48 calls: kernel {total['ms']:.4f} ms, "
+            f"plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+            f"({100 * total['bound_ms'] / total['ms']:.1f}% of 3.35 TB/s)")
+        results[name] = dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                             ms=total["ms"], plain_ms=total["plain_ms"], ok=all_ok,
+                             bound_ms=total["bound_ms"], bound_by="bytes", library_ms=None,
+                             cases=cases)
 
 
 def phase_kernels_patch(dev, rng, gen, results):
@@ -3279,8 +3360,11 @@ def export_case(dev, name, backend, batch, paths, report, reps=5):
             replay_ms.append(synced_ms(lambda: replay(bucket.pixels, sizes))[0])
     equal = {k: torch.equal(got[k], want[k]) for k in want}
     counts = paths[name]
-    want_counts = {k: (1 if k == "fused_stem" else 2 if k == roi_kernel else 0) for k in counts}
-    want_ops = {"seam.fused_stem.default": 1, f"seam.{roi_kernel}.default": 2}
+    # K1 once, the RoIAlign kernel twice (box branch, 14x14 pass), K8 after each of the
+    # body's 48 convs
+    want_calls = {"fused_stem": 1, roi_kernel: 2, "bn_epilogue": 48}
+    want_counts = {k: want_calls.get(k, 0) for k in counts}
+    want_ops = {f"seam.{k}.default": n for k, n in want_calls.items()}
     row = {"export_s": export_s, "save_s": save_s, "mb": mb, "load_s": load_s,
            "eager_ms": statistics.median(eager_ms), "replay_ms": statistics.median(replay_ms),
            "bit_equal": equal, "ops": ops, "valid": int(got["valid"].sum())}
@@ -3314,7 +3398,7 @@ def export_cli(paths, report):
     log(f"export: CLI --check in {check_s:.1f} s: {check_lines}")
     text = "\n".join(check_lines)
     if rc_out != 0 or rc_check != 0 or "input images: [11, 3, 800, 1344]" not in text \
-            or "custom ops: none" not in text:
+            or "custom ops: {'seam.bn_epilogue.default': 49}" not in text:  # K8 alone
         raise SystemExit("export: the CLI's --out/--check failed")
     report["export_cli"] = {"out_s": out_s, "check_s": check_s, "mb": mb,
                             "out": out_lines, "check": check_lines}
@@ -3444,7 +3528,9 @@ def run_gate(gate, module, marker, arm_module, arm_name, arm_of, roi_kernel_of, 
 
     base = [torch.cuda.memory_allocated()]
     train = counted(paths, lambda _: f"gate_train_{gate}",
-                    lambda path, c: check_launches(path, c, (), tuple(KERNELS)), base)
+                    lambda path, c: check_launches(path, c, (),
+                                                   tuple(k for k in KERNELS if k not in K8)),
+                    base)
     arm = counted(paths, lambda a: f"gate_{gate}_{arm_of(a)}",
                   lambda path, c: gate_arm_check(path, c, roi_kernel_of(path.split("_", 2)[2])),
                   base)
@@ -3508,8 +3594,8 @@ def phase_gates(dev):
     launch_counts(zero=True)
     _, lines, secs = run_cli(clamp.main, ["--detector"])
     paths["gate_clamp"] = launch_counts()
-    check_launches("gate_clamp", paths["gate_clamp"], ("fused_stem", "roi_align"),
-                   tuple(k for k in KERNELS if k not in ("fused_stem", "roi_align")))
+    check_launches("gate_clamp", paths["gate_clamp"], ("fused_stem", "roi_align", "bn_epilogue"),
+                   tuple(k for k in KERNELS if k not in ("fused_stem", "roi_align") + K8))
     [det] = [ln for ln in lines if ln.startswith("detector detections")]
     fracs = [ln for ln in lines if "clamp fraction" in ln]
     if len(fracs) != 4 or len([ln for ln in lines if " clamps (footprint " in ln]) != 8:

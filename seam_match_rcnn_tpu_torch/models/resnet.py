@@ -4,8 +4,15 @@ Port of ``seam_match_rcnn_tpu/models/resnet.py`` (torchvision
 ``resnet_fpn_backbone('resnet50')``) with torchvision's parameter names
 (``body.layer1.0.conv1.weight``, ``fpn.inner_blocks.0.0.weight``, ...).
 ``stem_backend="pallas"`` runs the stem as kernel K1
-(``ops/cuda_stem.fused_stem``); ``"xla"`` runs conv1 + FrozenBN + relu +
-maxpool as separate torch ops.  Both read the same parameters.
+(``ops/cuda_stem.fused_stem``); ``"xla"`` runs conv1, FrozenBN + relu (K8)
+and maxpool as separate ops.  Both read the same parameters.
+
+After each conv of the body, one K8 pass (``ops/cuda_epilogue.bn_epilogue``,
+through ``FrozenBatchNorm2d``) applies the FrozenBN, the bottleneck's
+residual (the identity, or the downsample conv's raw output with its own
+FrozenBN) and ReLU, bit for bit the op chain it replaces.  Each forward
+counts its FrozenBNs once (``utils/profiling.count``): ``bn.fused`` on a card,
+where K8 applies them, ``bn.plain`` elsewhere, where the plain chain does.
 
 The stem and layer1 are frozen as torchvision's ``trainable_layers=3``
 freezes them: their parameters never require a gradient, so no backward
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_stem import fused_stem
+from ..utils.profiling import count
 from .layers import Conv2d, FrozenBatchNorm2d
 
 
@@ -54,11 +62,12 @@ class Bottleneck(nn.Module):
                 FrozenBatchNorm2d(planes * 4, compute_dtype=dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        idt = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + idt)
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.bn2(self.conv2(out), relu=True)
+        if self.downsample is None:
+            return self.bn3(self.conv3(out), x, relu=True)
+        conv_d, bn_d = self.downsample
+        return self.bn3(self.conv3(out), conv_d(x), bn_d, relu=True)
 
 
 class ResNet50(nn.Module):
@@ -85,13 +94,16 @@ class ResNet50(nn.Module):
             planes *= 2
         for mod in (self.conv1, self.layer1):
             mod.requires_grad_(False)
+        # FrozenBNs applied by K8 a forward: three a bottleneck, one a downsample,
+        # and the stem's unless K1 applies it
+        self.n_bn = 3 * sum(block_counts) + len(block_counts) + (stem_backend == "xla")
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         if self.stem_backend == "pallas":
             scale, shift = self.bn1.scale_shift()
             x = fused_stem(x, self.conv1.weight, scale, shift, self.dt)
         else:
-            x = F.relu(self.bn1(self.conv1(x)))
+            x = self.bn1(self.conv1(x), relu=True)
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         remat = self.remat and torch.is_grad_enabled()
         outs = []
@@ -99,6 +111,7 @@ class ResNet50(nn.Module):
             for block in getattr(self, f"layer{i}"):
                 x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             outs.append(x)
+        count("bn.fused" if x.is_cuda else "bn.plain", self.n_bn)
         return tuple(outs)
 
 

@@ -59,6 +59,12 @@ _SIGNATURES = {
     "seam_nlb_aggregate": [_P] * 14 + [_I, _I, _P],
     # x, y, w, b, out, Q, G, C, tile rows, stream
     "seam_pairwise_scores": [_P] * 5 + [_I] * 4 + [_P],
+    # y, scale, shift, residual, residual scale, residual shift, out,
+    # numel, C, H*W, residual kind, relu, is f32, 16-byte aligned, stream
+    "seam_bn_epilogue_forward": [_P] * 7 + [_I] * 7 + [_P],
+    # grad, out, scale, residual scale, grad_y, grad_r,
+    # numel, C, H*W, residual kind, relu, is f32, 16-byte aligned, stream
+    "seam_bn_epilogue_backward": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lib = None

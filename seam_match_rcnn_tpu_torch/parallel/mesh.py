@@ -22,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd.graph import increment_version
 
 
 def make_mesh(data: int = -1, model: int = 1, device_type: str = "cuda"):
@@ -92,14 +93,16 @@ def replicate(module_or_tensors: Any, mesh) -> Any:
         return module_or_tensors
     if isinstance(module_or_tensors, torch.nn.Module):
         m = module_or_tensors
-        tensors = [t.data for t in list(m.parameters()) + list(m.buffers())]
+        tensors = list(m.parameters()) + list(m.buffers())
     else:
         tensors = []
         _tree_map(lambda t: tensors.append(t) if isinstance(t, torch.Tensor) else None,
                   module_or_tensors)
     with torch.no_grad():
         for t in tensors:
-            dist.broadcast(t, src=0)
+            dist.broadcast(t.data, src=0)
+    for t in tensors:  # the broadcast writes past the version counters, which caches
+        increment_version(t)  # read (FrozenBatchNorm2d's compute-dtype scale and shift)
     return module_or_tensors
 
 

@@ -7,8 +7,9 @@ a 64x64 canvas; ``inference(with_masks=True, with_match=True,
 with_roi_features=False)``.  Both sides share the weights through the bridge
 (``ckpt/from_jax``) and take the same seeded numpy inputs.  The forward
 kernels are the custom ops ``seam::fused_stem``, ``seam::roi_align``,
-``seam::roi_align_patch`` and ``seam::roi_align_patch_int8``; on the CPU
-each runs its plain version.
+``seam::roi_align_patch``, ``seam::roi_align_patch_int8`` and
+``seam::bn_epilogue`` (with ``seam::bn_epilogue_backward``); on the CPU each
+runs its plain version.
 """
 
 import sys
@@ -33,7 +34,7 @@ from seam_match_rcnn_tpu_torch.config import (ModelConfig, RoIHeadsConfig, RPNCo
                                               serving_model_config)
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.ops.nms import nms_kept_mask
-from seam_match_rcnn_tpu_torch.ops import cuda_roi_align, cuda_stem
+from seam_match_rcnn_tpu_torch.ops import cuda_epilogue, cuda_roi_align, cuda_stem
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
 from seam_match_rcnn_tpu_torch.ops.roi_align import SPATIAL_SCALES, multilevel_roi_align
 from seam_match_rcnn_tpu_torch.ops.roi_align_patch import quantize_features_int8
@@ -83,7 +84,9 @@ def test_export_roundtrip_matches_jax_export(tmp_path):
     path = tmp_path / "serving.pt2"
     torch.export.save(program, str(path))
     loaded = est.load(str(path))
-    assert est.seam_ops(loaded) == {}  # ModelConfig(): every op plain, as the JAX tool's
+    # ModelConfig(): the plain stem and RoIAlign, as the JAX tool's; K8 after each
+    # conv of the backbone (16 bottlenecks x 3, the stem's FrozenBN)
+    assert est.seam_ops(loaded) == {"seam.bn_epilogue.default": 49}
     with torch.no_grad():
         got = {k: v.numpy() for k, v in loaded.module()(timages, tsizes).items()}
 
@@ -101,7 +104,8 @@ def test_export_roundtrip_matches_jax_export(tmp_path):
 
 def test_serving_export_keeps_the_kernel_ops_and_replays_bit_equal():
     """Under serving_model_config() the exported graph calls seam::fused_stem
-    once and seam::roi_align twice (box branch, 14x14 pass), the NMS is a
+    once, seam::roi_align twice (box branch, 14x14 pass) and
+    seam::bn_epilogue after each of the body's 48 convs, the NMS is a
     while_loop node, and the replay equals the eager forward bit for bit."""
     cfg = serving_model_config(rpn=RPNConfig(**RPN),
                                roi_heads=RoIHeadsConfig(detections_per_img=4,
@@ -111,7 +115,8 @@ def test_serving_export_keeps_the_kernel_ops_and_replays_bit_equal():
     _, _, (timages, tsizes) = port_inputs()
     module = est.ServingForward(model)
     program = est.export(module, (timages, tsizes))
-    assert est.seam_ops(program) == {"seam.fused_stem.default": 1,
+    assert est.seam_ops(program) == {"seam.bn_epilogue.default": 48,
+                                     "seam.fused_stem.default": 1,
                                      "seam.roi_align.default": 2}
     loops = [n for n in program.graph.nodes
              if n.op == "call_function" and "while_loop" in str(n.target)]
@@ -124,6 +129,7 @@ def test_serving_export_keeps_the_kernel_ops_and_replays_bit_equal():
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert cuda_stem.fused_stem.launches == 0 and cuda_roi_align.roi_align.launches == 0
+    assert cuda_epilogue.bn_epilogue.launches == 0
 
 
 class KeptMask(torch.nn.Module):
@@ -183,7 +189,18 @@ def _op_cases():
     scale, shift = torch.rand(64, generator=g) + 0.5, torch.randn(64, generator=g) * 0.1
     q, qs = quantize_features_int8(_levels())
     sc = list(SPATIAL_SCALES)
+    y, res = torch.randn(2, 16, 5, 7, generator=g), torch.randn(2, 16, 5, 7, generator=g)
+    cs = [torch.rand(16, generator=g) + 0.5 for _ in range(4)]
+    out = cuda_epilogue.bn_epilogue_plain(y, cs[0], cs[1], res, cs[2], cs[3], True)
+    grad = torch.randn(2, 16, 5, 7, generator=g)
     return {  # name: (op, its arguments, the plain version's output)
+        "bn_epilogue": (torch.ops.seam.bn_epilogue.default,
+                        (y.requires_grad_(), cs[0], cs[1], res.requires_grad_(), cs[2], cs[3],
+                         True), out),
+        "bn_epilogue_backward": (torch.ops.seam.bn_epilogue_backward.default,
+                                 (grad, out, cs[0], cs[2], cuda_epilogue.RAW, True),
+                                 cuda_epilogue.bn_epilogue_grad_plain(grad, out, cs[0], cs[2],
+                                                                      cuda_epilogue.RAW, True)),
         "fused_stem": (torch.ops.seam.fused_stem.default,
                        (x, conv_w, scale, shift, torch.bfloat16),
                        cuda_stem.stem_plain(x, conv_w, scale, shift, torch.bfloat16)),
@@ -200,14 +217,16 @@ def _op_cases():
 
 
 @pytest.mark.parametrize("name", ["fused_stem", "roi_align", "roi_align_patch",
-                                  "roi_align_patch_int8"])
+                                  "roi_align_patch_int8", "bn_epilogue",
+                                  "bn_epilogue_backward"])
 def test_custom_op_passes_opcheck(name):
     """torch.library.opcheck: schema, autograd registration, the fake
     implementation against the CPU one (shape, dtype, strides), and AOT
     dispatch; the CPU implementation is the wrapper's plain version."""
     op, args, plain = _op_cases()[name]
     out = op(*args)
-    assert torch.equal(out, plain) and out.stride() == plain.stride()
+    outs, plains = (out, plain) if isinstance(out, tuple) else ((out,), (plain,))
+    assert all(torch.equal(o, p) and o.stride() == p.stride() for o, p in zip(outs, plains))
     result = torch.library.opcheck(op, args)
     assert set(result.values()) == {"SUCCESS"}, result
     kernels = torch._C._dispatch_dump(str(op._schema.name)).split("\n")

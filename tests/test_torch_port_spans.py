@@ -37,7 +37,7 @@ SIZES = [(40, 60), (60, 40), (44, 66)]  # two canvas buckets
 SPANS = {"index": {"seam.call", "seam.ingest", "seam.forward", "seam.nms", "seam.readback"},
          "train": {"seam.ingest", "seam.step", "seam.forward", "seam.nms", "seam.backward",
                    "seam.optimizer"}}
-COUNTERS = {"nms.calls", "nms.steps"}
+COUNTERS = {"nms.calls", "nms.steps", "bn.plain"}  # K8 applies no FrozenBN on the CPU
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,8 @@ Writes ``MatchRCNN.inference(with_masks=True, with_match=True,
 with_roi_features=False)`` of the video model as one ``torch.export``
 program (``.pt2``) and replays it.  The hand-written kernels stay in the
 program as the custom ops ``seam::fused_stem``, ``seam::roi_align``,
-``seam::roi_align_patch`` and ``seam::roi_align_patch_int8``, and the NMS
+``seam::roi_align_patch``, ``seam::roi_align_patch_int8`` and
+``seam::bn_epilogue`` (K8, after each conv of the backbone), and the NMS
 fixed point as a ``while_loop`` node, so a replay on the card launches the
 kernels.  Loading a ``.pt2`` that calls ``seam::`` ops needs the port's ops
 modules imported first (``load`` here does it); replay it under
@@ -75,7 +76,8 @@ def export(module, inputs):
 
 def load(path: str):
     """The exported program in ``path``, after registering the ``seam::`` ops."""
-    from seam_match_rcnn_tpu_torch.ops import cuda_roi_align, cuda_stem  # noqa: F401
+    from seam_match_rcnn_tpu_torch.ops import (cuda_epilogue, cuda_roi_align,  # noqa: F401
+                                               cuda_stem)
 
     return torch.export.load(path)
 
