@@ -209,7 +209,7 @@ from seam_match_rcnn_tpu_torch.models.layers import FrozenBatchNorm2d
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.models.transform import batch_images, normalize
 from seam_match_rcnn_tpu_torch.ops import (cuda_epilogue, cuda_kernels, cuda_roi_align, cuda_stem,
-                                           native, rle)
+                                           native, rle, vit_attention)
 from seam_match_rcnn_tpu_torch.ops.masks import paste_masks
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
@@ -252,6 +252,9 @@ KERNELS = {
                     cuda_epilogue.bn_epilogue),
     "bn_epilogue_grad": ("seam_match_rcnn_tpu_torch/csrc/conv_epilogue.cu", "none",
                          cuda_epilogue.bn_epilogue_grad),
+    # K9 replaces no TPU kernel: the JAX package has no vision transformer
+    "vit_attention": ("seam_match_rcnn_tpu_torch/ops/vit_attention.py", "none",
+                      vit_attention.vit_attention),
 }
 K8 = ("bn_epilogue", "bn_epilogue_grad")  # every path through the backbone on the card
 SERVING_PATH = ("fused_stem", "roi_align", "nlb_aggregate", "pairwise_scores", "bn_epilogue")
@@ -295,6 +298,72 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# K9's two calls in a chunk of 11 ViTDet-L canvases of 1024x1024 (a 64x64 token
+# grid, 16 heads of 64): (name, padded grid side, window side)
+VIT_ATTENTION_CASES = (("windowed", 70, 14), ("global", 64, 64))
+
+
+def vit_attention_case(gen, dev, grid: int, s: int, b: int = 11, heads: int = 16,
+                       d: int = 64):
+    """Inputs of one K9 call: qkv [b, grid, grid, 3*heads*d] and the rel
+    terms, bf16, drawn N(0, 1) (the cell's logits are O(1) too)."""
+    nw = b * (grid // s) ** 2
+    randn = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)  # noqa
+    return randn(b, grid, grid, 3 * heads * d), randn(nw, heads, s * s, s), \
+        randn(nw, heads, s * s, s)
+
+
+def check_vit_attention(got, want, v):
+    """K9 rounds the softmax weights to bf16 for the PV product (a relative
+    2^-9 each), sums in its own order and rounds once to bf16: an output may
+    differ from the f32 plain version by one bf16 ulp plus 2^-8 of the
+    largest |v|, twice the weights' rounding."""
+    err = (got.float() - want.float()).abs()
+    tol = bf16_ulp(want.float()) + 2.0 ** -8 * float(v.float().abs().max())
+    return float(err.max()), "1 bf16 ulp + 2^-8 max|v|", bool((err <= tol).all())
+
+
+def phase_kernels_vit(dev, gen, results):
+    """K9 at the ViTDet-L indexing cell's two attention calls (a chunk of 11
+    canvases): against its plain version, with its time, the plain time, its
+    bound and the library's (PyTorch's fused attention over a materialised
+    bias, as a yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    cases, all_ok = [], True
+    for name, grid, s in VIT_ATTENTION_CASES:
+        qkv, rh, rw = vit_attention_case(gen, dev, grid, s)
+        args = (qkv, rh, rw, s)
+        got = vit_attention.vit_attention(*args)
+        v = qkv.view(11, grid, grid, 3, 16, 64)[:, :, :, 2]
+        err, tol, ok = check_vit_attention(got, vit_attention.vit_attention_plain(*args), v)
+        ms = median_ms(lambda: vit_attention.vit_attention(*args), 10)
+        pms = median_ms(lambda: vit_attention.vit_attention_plain(*args), 2)
+        n, t = rh.shape[0], s * s
+        x = qkv.view(11, grid // s, s, grid // s, s, 3, 16, 64).permute(5, 0, 1, 3, 6, 2, 4, 7)
+        q, k, vv = x.reshape(3, n, 16, t, 64).unbind(0)
+
+        def library():
+            bias = (rh[..., :, None] + rw[..., None, :]).reshape(n, 16, t, t)
+            return F.scaled_dot_product_attention(q, k, vv, attn_mask=bias)
+
+        lms = median_ms(library, 5)
+        flops = 4 * n * 16 * t * t * 64
+        b_ms, b_by = bound(nbytes(qkv, rh, rw, got), flops, "bf16")
+        cases.append(dict(shape=f"{name}: {n} windows x 16 heads x {t} tokens, bf16",
+                          max_abs_err=err, tol=tol, ms=ms, plain_ms=pms, library_ms=lms,
+                          bound_ms=b_ms, bound_by=b_by))
+        log(f"kernels: vit_attention {name}: err {err:.3g} ok={ok}, {ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), plain {pms:.4f} ms, library {lms:.4f} ms")
+        all_ok &= ok
+        del qkv, rh, rw, got, q, k, vv, x, v
+        torch.cuda.empty_cache()
+    results["vit_attention"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=cases[0]["ms"],
+        plain_ms=cases[0]["plain_ms"], ok=all_ok, bound_ms=cases[0]["bound_ms"],
+        bound_by=cases[0]["bound_by"], library_ms=cases[0]["library_ms"], cases=cases)
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -576,6 +645,7 @@ def phase_kernels(dev, results):
 
     phase_kernels_patch(dev, rng, gen, results)
     phase_kernels_epilogue(dev, gen, results)
+    phase_kernels_vit(dev, gen, results)
 
     # K3 at S in {1, 64}, T = 10, and S = 7, T = 32 with a track that has no
     # valid frame, with a non-zero W_z
@@ -3666,7 +3736,8 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases",
             "canvas_cases", "deterministic")
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+        {"name": name, "route": "triton" if src.endswith(".py") else "cuda", "source": src,
+         "replaces": rep,
          "launches": sum(counts[name] for counts in paths.values()),
          "launches_by_path": {path: counts[name] for path, counts in paths.items()},
          **{k: results[name][k] for k in keys if k in results[name]}}

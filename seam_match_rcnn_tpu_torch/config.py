@@ -137,15 +137,47 @@ class TransformConfig:
     image_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     image_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
     size_divisible: int = 32
+    # > 0: one square canvas of this side for every orientation (ViTDet pads
+    # each image, its long side resized to 1024, to 1024 x 1024).
+    square_pad: int = 0
 
     @property
     def landscape_canvas(self) -> Tuple[int, int]:
         # (H, W) covering every landscape resize: H <= 800, W <= 1333 -> 1344.
-        return (800, 1344)
+        return (self.square_pad,) * 2 if self.square_pad else (800, 1344)
 
     @property
     def portrait_canvas(self) -> Tuple[int, int]:
-        return (1344, 800)
+        return (self.square_pad,) * 2 if self.square_pad else (1344, 800)
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    # ViTDet-L (Li, Mao, Girshick, He, arXiv:2203.16527): detectron2's
+    # projects/ViTDet/configs/COCO/mask_rcnn_vitdet_l_100ep.py on
+    # configs/common/models/mask_rcnn_vitdet.py.  24 blocks of 16 heads of
+    # 64; blocks 5, 11, 17 and 23 attend globally, the others in windows of
+    # 14 x 14 tokens; decomposed relative positions in every block; a simple
+    # feature pyramid (ConvTranspose / identity / max-pool, channel
+    # LayerNorm) from the last 64 x 64 map to P2-P6 of ``out_channels``.
+    img_size: int = 1024
+    patch_size: int = 16
+    embed_dim: int = 1024
+    depth: int = 24
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    window_size: int = 14
+    window_block_indexes: Tuple[int, ...] = (0, 1, 2, 3, 4, 6, 7, 8, 9, 10, 12, 13, 14, 15,
+                                             16, 18, 19, 20, 21, 22)
+    use_rel_pos: bool = True
+    # the absolute position table as pretrained (224 / 16 = 14 x 14 and a
+    # cls token), bicubic-interpolated to the grid
+    pretrain_img_size: int = 224
+    pretrain_use_cls_token: bool = True
+    ln_eps: float = 1e-6
+    scale_factors: Tuple[float, ...] = (4.0, 2.0, 1.0, 0.5)
+    out_channels: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +214,11 @@ class ModelConfig:
     # Training-semantics neutral: forward values identical, trainable-param
     # gradients identical (tests/test_backbone_freeze.py pins both).
     freeze_backbone_stages: bool = False
+    # The detector's backbone: "resnet50_fpn" (ResNet-50-FPN, the paper's)
+    # or "vitdet_l" (ViTDet-L and its simple feature pyramid, ``vit``; with
+    # a square canvas, ``transform.square_pad``).  The heads are the same.
+    backbone: str = "resnet50_fpn"
+    vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
 
 
 def serving_model_config(**overrides) -> "ModelConfig":

@@ -21,7 +21,9 @@ trainable, and the window backends take the exact fixup when
 scatter-add adjoint); the "xla" forward ignores it, since autograd
 transposes the plain forward itself, as in the JAX package.
 ``ModelConfig.remat_backbone`` recomputes each backbone bottleneck in the
-backward (``models/resnet.py``).
+backward (``models/resnet.py``).  ``ModelConfig.backbone = "vitdet_l"`` puts
+ViTDet-L and its simple feature pyramid (``models/vit.py``, inference only)
+in the ResNet-50-FPN's place; the heads and everything after P2-P6 stay.
 
 Two measurement and evaluation surfaces of the JAX model are here too:
 ``profile_losses`` (the loss of a cumulative prefix of the phase-1
@@ -57,10 +59,12 @@ from .match_head import MatchPredictor, TemporalAggregator
 from .resnet import BackboneWithFPN
 from .rpn import flatten_rpn_outputs, select_proposals, topk_stable
 from .transform import normalize
+from .vit import ChannelLayerNorm, ViTDetBackbone
 
 # the cumulative prefixes of the phase-1 pipeline that ``train_export`` can
 # stop after; ``profile_losses`` also takes "match" and "full" (everything)
 PROFILE_STAGES = ("backbone", "rpn", "sample", "boxbranch", "mask")
+BACKBONES = ("resnet50_fpn", "vitdet_l")  # ModelConfig.backbone
 
 
 def _select_match_slots(pos_props: torch.Tensor, pos_valid: torch.Tensor,
@@ -112,6 +116,14 @@ class MatchRCNN(nn.Module):
                 "(kernel K5) or 'xla' (the scatter-add adjoint)")
         if not isinstance(cfg.remat_backbone, bool):
             raise ValueError(f"remat_backbone must be True or False, not {cfg.remat_backbone!r}")
+        # a config without the field (the JAX package's, which the parity
+        # tests hand in) is a ResNet-50-FPN's
+        backbone = getattr(cfg, "backbone", "resnet50_fpn")
+        if backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {backbone!r}; expected one of {BACKBONES}")
+        if backbone == "vitdet_l" and (cfg.stem_backend != "xla" or cfg.remat_backbone):
+            raise ValueError("stem_backend and remat_backbone are the ResNet's: with "
+                             "backbone 'vitdet_l' keep them at 'xla' and False")
         # f32 paths (match/aggregator trunks, NLB, pairwise scorer) must not
         # run in TF32, cuDNN's default for convolutions
         torch.backends.cudnn.allow_tf32 = False
@@ -120,7 +132,10 @@ class MatchRCNN(nn.Module):
         self.video = video
         dt = getattr(torch, cfg.compute_dtype)
         tdt = getattr(torch, cfg.match.trunk_dtype)
-        self.backbone = BackboneWithFPN(dt, cfg.stem_backend, remat=cfg.remat_backbone)
+        if backbone == "vitdet_l":
+            self.backbone = ViTDetBackbone(cfg.vit, dt)
+        else:
+            self.backbone = BackboneWithFPN(dt, cfg.stem_backend, remat=cfg.remat_backbone)
         self.rpn = nn.ModuleDict({"head": RPNHead(cfg.anchors.num_anchors_per_location, dt)})
         heads = {
             "box_head": TwoMLPHead(256, rh.box_roi_output, dt),
@@ -574,6 +589,9 @@ def init_parameters(model: MatchRCNN, generator: torch.Generator) -> MatchRCNN:
             fill(mod.running_var, torch.full_like(mod.running_var, var))
             if getattr(mod, "num_batches_tracked", None) is not None:
                 fill(mod.num_batches_tracked, torch.zeros_like(mod.num_batches_tracked))
+        elif isinstance(mod, (nn.LayerNorm, ChannelLayerNorm)):
+            fill(mod.weight, torch.ones_like(mod.weight))
+            fill(mod.bias, torch.zeros_like(mod.bias))
         elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
             if name.startswith("rpn."):
@@ -588,6 +606,9 @@ def init_parameters(model: MatchRCNN, generator: torch.Generator) -> MatchRCNN:
                 normal(w, _lecun_std(w))
             if mod.bias is not None:
                 fill(mod.bias, torch.zeros_like(mod.bias))
+    for name, t in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ("pos_embed", "rel_pos_h", "rel_pos_w"):
+            normal(t, 0.02)  # ViTDet's position tables (trunc-normal 0.02 there)
     missing = [n for n, t in list(model.named_parameters()) + list(model.named_buffers())
                if id(t) not in done]
     if missing:

@@ -20,6 +20,7 @@ sys.path.insert(0, str(ROOT))
 import tools.validate_parity as jax_vp  # noqa: E402
 import tools.validate_parity_torch as vp  # noqa: E402
 
+from seam_match_rcnn_tpu_torch.config import ViTConfig  # noqa: E402
 from torch_port_canvas import Canvas96x128  # noqa: E402
 
 torch.set_num_threads(2)
@@ -30,7 +31,12 @@ PROFILES = ("exact", "parity", "serving", "fast")
 @pytest.mark.parametrize("small", [False, True])
 @pytest.mark.parametrize("profile", PROFILES)
 def test_build_config_equals_the_jax_tool(profile, small):
+    """The JAX tool's fields agree; the port's own (the ViTDet backbone and
+    the square canvas, which the JAX package lacks) keep their defaults."""
     got = dataclasses.asdict(vp.build_config(profile, small))
+    assert got.pop("backbone") == "resnet50_fpn"
+    assert got.pop("vit") == dataclasses.asdict(ViTConfig())
+    assert got["transform"].pop("square_pad") == 0
     want = dataclasses.asdict(jax_vp.build_config(profile, small))
     assert got == want
     with pytest.raises(SystemExit):
