@@ -19,7 +19,9 @@ Phases, one line each:
                and K5 called twice on the same inputs (equal bytes), and
                K8 at each distinct call of a batch-11 forward of the body,
                forward and backward, bit-equal to the op chain, with the
-               totals of a forward's 48 calls;
+               totals of a forward's 48 calls; K9 at the ViTDet-L cell's two
+               attention calls, and K10 at its residual stream, alone, with
+               the op chain's time beside it;
   3. slice   - the serving path at full width (ResNet-50-FPN, 4000
                proposals, 800x1344 canvases, chunk 11) with seeded random
                weights: a gallery of 16 synthetic shop images, then
@@ -209,7 +211,7 @@ from seam_match_rcnn_tpu_torch.models.layers import FrozenBatchNorm2d
 from seam_match_rcnn_tpu_torch.models.matchrcnn import init_model
 from seam_match_rcnn_tpu_torch.models.transform import batch_images, normalize
 from seam_match_rcnn_tpu_torch.ops import (cuda_epilogue, cuda_kernels, cuda_roi_align, cuda_stem,
-                                           native, rle, vit_attention)
+                                           native, rle, vit_attention, vit_residual_ln)
 from seam_match_rcnn_tpu_torch.ops.masks import paste_masks
 from seam_match_rcnn_tpu_torch.ops.pairwise import pairwise_match_scores
 from seam_match_rcnn_tpu_torch.ops import roi_align_patch as patch
@@ -255,6 +257,9 @@ KERNELS = {
     # K9 replaces no TPU kernel: the JAX package has no vision transformer
     "vit_attention": ("seam_match_rcnn_tpu_torch/ops/vit_attention.py", "none",
                       vit_attention.vit_attention),
+    # K10 replaces no TPU kernel either
+    "vit_residual_ln": ("seam_match_rcnn_tpu_torch/csrc/vit_residual_ln.cu", "none",
+                        vit_residual_ln.vit_residual_ln),
 }
 K8 = ("bn_epilogue", "bn_epilogue_grad")  # every path through the backbone on the card
 SERVING_PATH = ("fused_stem", "roi_align", "nlb_aggregate", "pairwise_scores", "bn_epilogue")
@@ -364,6 +369,61 @@ def phase_kernels_vit(dev, gen, results):
         max_abs_err=max(c["max_abs_err"] for c in cases), ms=cases[0]["ms"],
         plain_ms=cases[0]["plain_ms"], ok=all_ok, bound_ms=cases[0]["bound_ms"],
         bound_by=cases[0]["bound_by"], library_ms=cases[0]["library_ms"], cases=cases)
+
+
+def loop_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """A call's device time from CUDA events around ``reps`` calls in a row
+    (a call's host launch cost overlaps the previous call's device time), the
+    median of ``rounds``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def phase_kernels_residual_ln(dev, gen, results):
+    """K10 at the ViTDet-L indexing cell's residual stream (a chunk of 11
+    canvases: x [11, 64, 64, 1024] f32, a bf16 branch, y bf16), with and
+    without the branch: x_new bit-equal to the op chain's add, y within one
+    bf16 ulp of the chain's, the kernel's time, the chain's and the byte
+    bound (x read, the branch read, x_new and y written, once each)."""
+    shape = (11, 64, 64, 1024)
+    x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+    br = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(1024, generator=gen, device=dev)
+    b = 0.1 * torch.randn(1024, generator=gen, device=dev)
+    cases, all_ok = [], True
+    for name, branch in (("branch", br), ("no branch", None)):
+        args = (x, branch, w, b, 1e-6, torch.bfloat16)
+        got_x, got_y = vit_residual_ln.vit_residual_ln(*args)
+        want_x, want_y = vit_residual_ln.vit_residual_ln_plain(*args)
+        err, tol, ok = check_bf16(got_y, want_y)
+        ok &= bits_equal(got_x, want_x)
+        ms = loop_ms(lambda: vit_residual_ln.vit_residual_ln(*args))
+        pms = loop_ms(lambda: vit_residual_ln.vit_residual_ln_plain(*args))
+        outs = (got_x, got_y) if branch is not None else (got_y,)
+        b_ms, b_by = bound(nbytes(*[t for t in args[:4] if t is not None], *outs), 0, "bf16")
+        cases.append(dict(shape=f"[11,64,64,1024] f32 stream, {name}, y bf16", max_abs_err=err,
+                          tol=f"x_new bit-equal, y {tol}", ms=ms, plain_ms=pms, library_ms=None,
+                          bound_ms=b_ms, bound_by=b_by))
+        log(f"kernels: vit_residual_ln {name}: err {err:.3g} ok={ok}, {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({100 * b_ms / ms:.1f}% of 3.35 TB/s), plain {pms:.4f} ms")
+        all_ok &= ok
+        del got_x, got_y, want_x, want_y
+    results["vit_residual_ln"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=cases[0]["ms"],
+        plain_ms=cases[0]["plain_ms"], ok=all_ok, bound_ms=cases[0]["bound_ms"],
+        bound_by=cases[0]["bound_by"], library_ms=None, cases=cases)
+    del x, br
+    torch.cuda.empty_cache()
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -646,6 +706,7 @@ def phase_kernels(dev, results):
     phase_kernels_patch(dev, rng, gen, results)
     phase_kernels_epilogue(dev, gen, results)
     phase_kernels_vit(dev, gen, results)
+    phase_kernels_residual_ln(dev, gen, results)
 
     # K3 at S in {1, 64}, T = 10, and S = 7, T = 32 with a track that has no
     # valid frame, with a non-zero W_z

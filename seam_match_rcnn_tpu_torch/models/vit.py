@@ -11,10 +11,13 @@ attn.rel_pos_h, attn.rel_pos_w, norm2, mlp.fc1, mlp.fc2}``, ``simfp_{2..5}.*``.
 * Patch embedding: a 16 x 16 stride-16 conv to 1024 channels; the absolute
   position table (pretrained at 224 with a cls token) without its cls row,
   bicubic-interpolated to the grid, added.
-* 24 blocks ``x + attn(LN(x))``, ``x + mlp(LN(x))``.  Windowed blocks pad the
-  normed grid with zeros to whole 14 x 14 windows; the padded tokens are keys
-  like any other (detectron2 masks none).  Global blocks attend over the
-  whole grid.  Attention adds the decomposed relative positions: the
+* 24 blocks ``x + attn(LN(x))``, ``x + mlp(LN(x))``.  Each residual add and
+  the LayerNorm after it (the block's ``norm2``, the next block's ``norm1``)
+  run as one pass, kernel K10 (``ops/vit_residual_ln.py``) on the card, so a
+  block takes its first normed input from the block before.  Windowed blocks
+  pad the normed grid with zeros to whole 14 x 14 windows; the padded tokens
+  are keys like any other (detectron2 masks none).  Global blocks attend over
+  the whole grid.  Attention adds the decomposed relative positions: the
   unscaled q against the gathered [2S-1, 64] tables (``rel_terms``), inside
   kernel K9 (``ops/vit_attention.py``) on the card.
 * The pyramid from the last map: ConvTranspose x2 (LN, GELU) x2 / x2 /
@@ -25,13 +28,13 @@ Precision, as ViTDet's mixed-precision inference: parameters f32, dense
 layers and convs on bf16 inputs with f32 sums, LayerNorm in f32, the residual
 stream f32.  The windowed blocks crop the padded tokens before the output
 projection, which acts on each token alone.  Inference only: the attention
-kernel has no backward.
+and residual-stream kernels have no backward.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 
 from ..config import ViTConfig
 from ..ops.vit_attention import vit_attention
+from ..ops.vit_residual_ln import vit_residual_ln
 from ..utils.profiling import annotate, count
 from .layers import Conv2d, ConvTranspose2d, Linear
 
@@ -62,12 +66,19 @@ def rel_terms(qkv: torch.Tensor, table_h: torch.Tensor, table_w: torch.Tensor,
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last dim, computed in f32 (ViTDet's ``nn.LayerNorm``
-    under autocast)."""
+    """LayerNorm over the last dim of the f32 stream, computed in f32 and
+    rounded once to the compute dtype (ViTDet's ``nn.LayerNorm`` under
+    autocast), with the residual add before it."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight, self.bias,
-                            self.eps)
+    def __init__(self, dim: int, eps: float, dt: torch.dtype):
+        super().__init__(dim, eps=eps)
+        self.dt = dt
+
+    def forward(self, x: torch.Tensor,
+                branch: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [..., C] f32, branch (x's shape, compute dtype) or None -> (x +
+        branch, or x; its LayerNorm in the compute dtype), one pass (K10)."""
+        return vit_residual_ln(x, branch, self.weight, self.bias, self.eps, self.dt)
 
 
 class ChannelLayerNorm(nn.Module):
@@ -128,16 +139,17 @@ class Block(nn.Module):
         super().__init__()
         dim = cfg.embed_dim
         self.window = window  # 0: global
-        self.dt = dt
-        self.norm1 = LayerNorm(dim, eps=cfg.ln_eps)
+        self.norm1 = LayerNorm(dim, cfg.ln_eps, dt)
         self.attn = Attention(dim, cfg.num_heads, window or side, dt)
-        self.norm2 = LayerNorm(dim, eps=cfg.ln_eps)
+        self.norm2 = LayerNorm(dim, cfg.ln_eps, dt)
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), dt)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, H, W, C] f32 -> the same."""
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                norm: Optional[LayerNorm]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x [B, H, W, C] f32, y its ``norm1`` in the compute dtype, ``norm``
+        the next block's ``norm1`` (None after the last block) -> (the new
+        stream, its ``norm`` or None)."""
         _, h, w, _ = x.shape
-        y = self.norm1(x).to(self.dt)
         if self.window:
             s = self.window
             y = F.pad(y, (0, 0, 0, -w % s, 0, -h % s))
@@ -147,9 +159,10 @@ class Block(nn.Module):
                 raise ValueError(f"a global block takes the {s}x{s} grid of its position "
                                  f"tables, got {h}x{w}")
         y = self.attn(y, s)[:, :h, :w]
-        # f32 + bf16 -> f32 in one pass (the residual stream stays f32)
-        x = x + self.attn.proj(y)
-        return x + self.mlp(self.norm2(x).to(self.dt))
+        # f32 + bf16 -> f32 (the residual stream stays f32), then the LayerNorm
+        x, y = self.norm2(x, self.attn.proj(y))
+        z = self.mlp(y)
+        return (x + z, None) if norm is None else norm(x, z)
 
 
 class PatchEmbed(nn.Module):
@@ -202,8 +215,10 @@ class ViT(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(x)
         x = x + self.abs_pos(x.shape[1], x.shape[2])  # bf16 + f32 -> the f32 stream
-        for blk in self.blocks:
-            x = blk(x)
+        blocks = self.blocks
+        x, y = blocks[0].norm1(x)
+        for i, blk in enumerate(blocks):
+            x, y = blk(x, y, blocks[i + 1].norm1 if i + 1 < len(blocks) else None)
         return x
 
 
@@ -248,6 +263,7 @@ class ViTDetBackbone(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         with annotate("seam.vit"):
             count("vit.attn.fused" if x.is_cuda else "vit.attn.plain", len(self.net.blocks))
+            count("vit.ln.fused" if x.is_cuda else "vit.ln.plain", 2 * len(self.net.blocks))
             count("vit.windows", self.windows(x.shape[2], x.shape[3]) * x.shape[0])
             # NCHW over channels-last memory, rounded to the compute dtype once
             # (max-pooling commutes with the rounding)

@@ -65,6 +65,8 @@ _SIGNATURES = {
     # grad, out, scale, residual scale, grad_y, grad_r,
     # numel, C, H*W, residual kind, relu, is f32, 16-byte aligned, stream
     "seam_bn_epilogue_backward": [_P] * 6 + [_I] * 7 + [_P],
+    # x, branch, weight, bias, x_new, y, rows, C, eps, is f32, stream
+    "seam_vit_residual_ln": [_P] * 6 + [_I, _I, _F, _I, _P],
 }
 
 _lib = None
